@@ -18,5 +18,5 @@ extensions = [
     "sphinx.ext.viewcode",
 ]
 autodoc_member_order = "bysource"
-autodoc_mock_imports = ["jax", "jaxlib", "orbax"]
+autodoc_mock_imports = ["jax", "jaxlib"]
 html_theme = "sphinx_rtd_theme"

@@ -1,10 +1,10 @@
-"""pecanpy-tpu: a TPU-native node2vec(+) framework.
+"""pecanpy-tpu: an accelerator-native node2vec(+) framework.
 
 A from-scratch reimplementation of the capabilities of PecanPy
-(krishnanlab/PecanPy) designed for TPU hardware: batched, vectorized random
-walk generation via JAX/XLA (``lax.scan`` over walk steps, thousands of
-simultaneous walkers), Pallas kernels for the hot transition-probability /
-sampling paths, and an on-device skip-gram-with-negative-sampling (SGNS)
+(krishnanlab/PecanPy) for accelerators (an NVIDIA GPU today): batched,
+vectorized random walk generation via JAX/XLA (``lax.scan`` over walk
+steps, thousands of simultaneous walkers), exact rejection sampling for
+hub nodes, and an on-device skip-gram-with-negative-sampling (SGNS)
 trainer replacing gensim.
 
 Public surface mirrors the reference package layout

@@ -20,8 +20,8 @@ from pecanpy_tpu.wrappers import Timer
 def parse_args(argv=None):
     """Parse node2vec arguments (flag parity: ``cli.py:27-176``)."""
     parser = argparse.ArgumentParser(
-        description="Run pecanpy-tpu, a TPU-native node2vec(+) framework "
-        "built on JAX/XLA/Pallas",
+        description="Run pecanpy-tpu, an accelerator-native node2vec(+) "
+        "framework built on JAX/XLA",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
     )
     parser.add_argument(
@@ -109,7 +109,7 @@ def parse_args(argv=None):
         action="store_true",
         help="Number nodes 0..N-1 instead of reading an IDs array.",
     )
-    # --- TPU-specific extensions (absent from the reference CLI) ---
+    # --- device-specific extensions (absent from the reference CLI) ---
     parser.add_argument(
         "--degree-cap",
         type=int,
@@ -128,9 +128,9 @@ def parse_args(argv=None):
         "--table-dtype",
         choices=["auto", "float32", "bfloat16"],
         default="auto",
-        help="Embedding-table dtype. bfloat16 halves memory/traffic and "
-        "uses stochastic-rounding updates; 'auto' (default) picks "
-        "bfloat16 on TPU and float32 elsewhere.",
+        help="Embedding-table dtype. bfloat16 halves memory/traffic but "
+        "rounds updates to nearest (small SGD steps are lost); 'auto' "
+        "(default) picks float32.",
     )
     parser.add_argument(
         "--streaming",
@@ -149,13 +149,13 @@ def parse_args(argv=None):
     )
     parser.add_argument(
         "--trainer",
-        choices=["tpu", "sequential"],
-        default="tpu",
-        help="SGNS implementation: 'tpu' is the batched on-device "
-        "trainer; 'sequential' runs gensim's exact sequential loop on "
-        "host threads (native C++, hogwild over --workers threads) — "
-        "higher measured downstream quality on small graphs at host "
-        "CPU speed.",
+        choices=["device", "tpu", "sequential"],
+        default="device",
+        help="SGNS implementation: 'device' is the batched on-device "
+        "trainer ('tpu' is its old name, still accepted); 'sequential' "
+        "runs gensim's exact sequential loop on host threads (native "
+        "C++, hogwild over --workers threads) — the quality reference, "
+        "at host CPU speed.",
     )
     parser.add_argument(
         "--checkpoint-dir",
@@ -199,11 +199,11 @@ def parse_args(argv=None):
         default="auto",
         choices=("auto", "replicated", "edge"),
         help="Graph layout on the mesh: 'replicated' (full table per "
-        "chip), 'edge' (table row-sharded over the data axis with "
-        "collective row fetches — graphs bigger than one chip's HBM), "
-        "or 'auto' (edge once the tables exceed the per-chip budget, "
-        "PECANPY_TPU_REPLICATED_BUDGET_MB). Both layouts train "
-        "bit-identical embeddings for a given seed.",
+        "device), 'edge' (table row-sharded over the data axis with "
+        "collective row fetches — graphs bigger than one device's "
+        "memory), or 'auto' (edge once the tables exceed half a "
+        "device's memory, PECANPY_TPU_REPLICATED_BUDGET_MB overrides). "
+        "Both layouts train bit-identical embeddings for a given seed.",
     )
     return parser.parse_args(argv)
 

@@ -2,7 +2,7 @@
 
 This layer is deliberately plain numpy/Python: it parses edge lists, builds
 CSR / dense adjacency containers, and manages the node-ID registry. Device
-layouts for the TPU walk engine are built from these containers by
+layouts for the device walk engine are built from these containers by
 ``pecanpy_tpu.ops.layout``.
 
 Behavioral contracts mirrored from the reference (``src/pecanpy/graph.py``):

@@ -28,12 +28,25 @@ from pecanpy_tpu.ops.layout import DEFAULT_DEGREE_CAP, DeviceCSR
 from pecanpy_tpu.typing import Embeddings
 from pecanpy_tpu.wrappers import Timer
 
+TRAINERS = ("device", "sequential")
+
+
+def resolve_trainer(trainer: str) -> str:
+    """Canonical trainer name; ``"tpu"`` is the old name of ``"device"``."""
+    if trainer == "tpu":
+        return "device"
+    if trainer not in TRAINERS:
+        raise ValueError(
+            f"unknown trainer {trainer!r}; use 'device' or 'sequential'"
+        )
+    return trainer
+
+
 DEFAULT_WALKER_BATCH = 131072
-# Hub graphs walk fastest at smaller batches: the amortized engine's
-# descriptor-bound gathers run no faster with more lanes, while the
-# stall-tail inflation (max over lanes of summed geometric retries)
-# grows with the batch. Measured on the 1M-node Chung-Lu bench
-# (steps/s): 16k 8.16M, 32k 8.63M, 65k 8.31M, 131k 7.98M, 262k 7.12M.
+# Hub graphs take a smaller batch: the stall-tail inflation (max over
+# lanes of summed geometric retries) grows with the batch. Both defaults
+# were tuned on another accelerator and are not yet re-measured on the
+# GPU.
 DEFAULT_HUB_WALKER_BATCH = 32768
 
 
@@ -52,8 +65,7 @@ class Base(BaseGraph):
         random_state: seed for start-node shuffling and the device RNG tree.
         walker_batch: walkers advanced per device dispatch (compiled batch
             size). None resolves per graph: 131072 on fused-path graphs,
-            32768 on hub graphs (the amortized engine's measured sweet
-            spot — see DEFAULT_HUB_WALKER_BATCH).
+            32768 on hub graphs (see DEFAULT_HUB_WALKER_BATCH).
         degree_cap: nodes above this degree are served by the O(E) hub
             structures + rejection sampling instead of fused rows
             (``ops/hubs.py``); None pads fused rows to the true max degree.
@@ -105,9 +117,9 @@ class Base(BaseGraph):
         """The fused layout with host-numpy leaves (built once, cached).
 
         Used by the edge-partitioned pipeline, which device_puts each
-        shard's row slice directly onto its chip — the full table never
-        lands on a single device, so graphs bigger than one chip's HBM
-        stay buildable. Reuses the device copy's leaves when that was
+        shard's row slice directly onto its device — the full table never
+        lands on a single device, so graphs bigger than one device's
+        memory stay buildable. Reuses the device copy's leaves when that was
         already built (fetching beats building twice).
         """
         if self._host_graph is None:
@@ -368,7 +380,7 @@ class Base(BaseGraph):
         model_parallel: int = 1,
         partition: str = "auto",
         batch_walks: Optional[int] = None,
-        trainer: str = "tpu",
+        trainer: str = "device",
         checkpoint_dir: Optional[str] = None,
         checkpoint_every: int = 100,
         max_steps: Optional[int] = None,
@@ -386,21 +398,21 @@ class Base(BaseGraph):
 
         ``n_devices > 1`` runs the fused multi-device pipeline
         (``parallel/train.py``): walkers data-parallel, embedding tables
-        tensor-parallel over ``model_parallel`` shards, Pallas applier
-        per shard on TPU. ``partition`` picks the graph layout on that
-        mesh: ``"replicated"`` (full table per chip, collective-free
-        walking), ``"edge"`` (table row-sharded over the data axis with
-        collective row fetches — graphs bigger than one chip's HBM), or
-        ``"auto"`` (default — edge once the tables exceed the per-chip
-        budget, ``PECANPY_TPU_REPLICATED_BUDGET_MB``). Both layouts
-        train bit-identical embeddings for a given seed.
+        tensor-parallel over ``model_parallel`` shards. ``partition``
+        picks the graph layout on that mesh: ``"replicated"`` (full
+        table per device, collective-free walking), ``"edge"`` (table
+        row-sharded over the data axis with collective row fetches —
+        graphs bigger than one device's memory), or ``"auto"`` (default
+        — edge once the tables exceed the per-device budget,
+        ``utils/budget.py``). Both layouts train bit-identical
+        embeddings for a given seed.
 
-        ``trainer`` selects the SGNS implementation: ``"tpu"`` (default)
-        is the batched on-device trainer; ``"sequential"`` trains on the
-        host with gensim's exact sequential loop (native C++, hogwild
-        over ``self.workers`` threads) — higher measured downstream
-        quality (micro-F1 0.541 vs 0.510 at BlogCatalog scale) at host
-        CPU speed, intended for small graphs.
+        ``trainer`` selects the SGNS implementation: ``"device"``
+        (default; ``"tpu"`` is accepted as an alias) is the batched
+        on-device trainer; ``"sequential"`` trains on the host with
+        gensim's exact sequential loop (native C++, hogwild over
+        ``self.workers`` threads) — the quality reference, at host CPU
+        speed, intended for small graphs.
 
         ``checkpoint_dir`` snapshots the full training state (both
         tables + the step cursor) every ``checkpoint_every`` chunk-steps
@@ -422,31 +434,26 @@ class Base(BaseGraph):
             batch_walks=batch_walks,
         )
 
-        if trainer not in ("tpu", "sequential"):
-            raise ValueError(
-                f"unknown trainer {trainer!r}; use 'tpu' or 'sequential'"
-            )
+        trainer = resolve_trainer(trainer)
         if partition not in ("auto", "replicated", "edge"):
             raise ValueError(
                 f"unknown partition {partition!r}; use 'auto', "
                 "'replicated', or 'edge'"
             )
         total_tokens = self.num_nodes * num_walks * (walk_length + 1)
-        if trainer == "tpu" and epochs == 1 and total_tokens <= 5e7:
-            # measured exchange rate (BENCH.md "Downstream quality"): at
-            # small corpus scale the batched trainer's per-epoch quality
-            # trails the sequential reference (micro-F1 0.510 vs 0.541 at
-            # BlogCatalog scale) and epochs=2 closes the gap (0.542) for
-            # ~2-5 s of device compute. Advisory only — same spirit as
-            # the CLI's check_mode recommendations.
+        if trainer == "device" and epochs == 1 and total_tokens <= 5e7:
+            # at small corpus scale the batched trainer's one-epoch
+            # quality trails the sequential reference on the
+            # BlogCatalog-shaped benchmark, and epochs=2 closes the gap.
+            # Advisory only — same spirit as the CLI's check_mode
+            # recommendations.
             import warnings
 
             warnings.warn(
                 f"epochs=1 on a small corpus (~{total_tokens:.1e} tokens) "
-                "leaves measured quality on the table: epochs=2 matches "
-                "the sequential reference (micro-F1 0.542 vs 0.541 at "
-                "BlogCatalog scale) for seconds of extra device compute "
-                "- see BENCH.md 'Downstream quality'",
+                "leaves quality on the table: epochs=2 matches the "
+                "sequential reference's micro-F1 at BlogCatalog scale for "
+                "seconds of extra device compute",
                 stacklevel=2,
             )
         sequential = trainer == "sequential"
@@ -465,7 +472,7 @@ class Base(BaseGraph):
             if checkpoint_dir is not None:
                 raise ValueError(
                     "trainer='sequential' (the host gensim loop) has no "
-                    "checkpoint/resume support; use the default TPU "
+                    "checkpoint/resume support; use the default device "
                     "trainer with checkpoint_dir"
                 )
             seq_tokens = self.num_nodes * num_walks * (walk_length + 1)
@@ -475,8 +482,8 @@ class Base(BaseGraph):
                 warnings.warn(
                     f"trainer='sequential' trains ~{seq_tokens:.1e} "
                     "tokens on host CPU threads — expect minutes to "
-                    "hours; the default TPU trainer is ~2 orders of "
-                    "magnitude faster at this scale",
+                    "hours; the default device trainer is built for "
+                    "this scale",
                     stacklevel=2,
                 )
 
@@ -552,7 +559,8 @@ class Base(BaseGraph):
                 )
             )
 
-        # materialized-walk tail, shared by the TPU and sequential trainers
+        # materialized-walk tail, shared by the device and sequential
+        # trainers
         timed_walk = Timer("generate walks", verbose)(self.simulate_walks_device)
         walks, eff_len = timed_walk(num_walks, walk_length)
         if sequential:

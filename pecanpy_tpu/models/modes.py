@@ -3,7 +3,7 @@
 Reference mode classes: ``pecanpy.py:293-614``. Each mode differs only in
 how a batch of walkers picks its next node; the walk driver, termination
 semantics, and fused device layout are shared. The Sparse/Dense split of
-the reference collapses on TPU — both feed the same fused row layout — so
+the reference collapses on the device — both feed the same fused row layout — so
 the Dense classes differ only in which host container they parse into.
 
 Step functions receive the *pre-gathered fused rows* of the current and
@@ -32,11 +32,13 @@ def _want_cdf(mode, max_degree: int) -> bool:
 
     PreComp* modes require it. OTF modes on HUB graphs want it too: the
     amortized walker's per-trial proposal replaces a cumsum over the
-    [B, dpad] wgt rows with a channel read — measured +26% walk
-    throughput on the 1M-node Chung-Lu bench (6.42M -> 8.08M steps/s).
-    The channel costs N * dpad * 4 bytes of HBM, so it is gated on a
-    budget (default 2 GiB, ``PECANPY_TPU_CDF_BUDGET_MB``; 0 disables).
+    [B, dpad] wgt rows with a channel read. The channel costs
+    N * dpad * 4 bytes of device memory, so it is gated on a budget (an
+    eighth of the device's memory, ``utils/budget.py``;
+    ``PECANPY_TPU_CDF_BUDGET_MB`` overrides, 0 disables).
     """
+    from pecanpy_tpu.utils.budget import CDF, budget_bytes
+
     if mode._needs_cdf_channel:
         return True
     cap = mode.degree_cap
@@ -46,12 +48,9 @@ def _want_cdf(mode, max_degree: int) -> bool:
         return False
     if os.environ.get("PECANPY_TPU_AMORTIZED", "1") in ("0", "false"):
         return False
-    budget = (
-        int(os.environ.get("PECANPY_TPU_CDF_BUDGET_MB", "2048")) * (1 << 20)
-    )
     lane = 64  # layout.LANE granularity
     dpad = -(-min(max_degree, cap) // lane) * lane
-    return mode.num_nodes * dpad * 4 <= budget
+    return mode.num_nodes * dpad * 4 <= budget_bytes(CDF)
 
 
 class _SparseModeBase(Base, SparseGraph):
@@ -143,8 +142,8 @@ class _AmortizedOTFMixin:
     reads it instead of cumsum-ing the wgt rows every trial.
 
     ``engine.generate_walks_amortized`` replaces the per-step rejection
-    sampler's compaction sweeps with cross-step stalling — measured much
-    faster on power-law graphs, identical transition law. Graphs without
+    sampler's compaction sweeps with cross-step stalling — identical
+    transition law, far fewer serial steps on power-law graphs. Graphs without
     hubs keep the pure fused scan engine (faster when no lane ever
     stalls). ``PECANPY_TPU_AMORTIZED=0`` forces the per-step sampler
     (benchmark comparisons / debugging).
@@ -156,9 +155,10 @@ class _AmortizedOTFMixin:
         """Walks per dispatch = queue_factor * walker lanes (hub graphs).
 
         The queued engine amortizes its straggler tail over the whole
-        dispatch, so larger walk queues per dispatch walk faster; 8
-        lanes' worth (~262k walks at the default 32k lanes, an 85 MB
-        walk buffer) captures most of the win. 1 falls back to one
+        dispatch, so larger walk queues per dispatch walk faster; the
+        default 8 lanes' worth (~262k walks at the default 32k lanes, an
+        85 MB walk buffer) is not yet re-measured on the GPU. 1 falls
+        back to one
         batch per dispatch (``PECANPY_TPU_QUEUE_FACTOR``; 0 disables
         the queued engine entirely and uses the per-batch amortized
         walker).
@@ -236,7 +236,7 @@ class PreCompFirstOrder(_SparseModeBase):
     """First-order weighted walks from precomputed per-node tables.
 
     Reference: ``pecanpy.py:312-361`` — per-edge alias tables giving O(1)
-    draws. The TPU equivalent precomputes each node's normalized transition
+    draws. The device equivalent precomputes each node's normalized transition
     CDF into a fused-row channel: the walk step is one fused gather + a
     compare-reduce — O(1) memory transactions per step, the same contract
     the alias tables buy the reference (identical sampled distribution).
@@ -273,7 +273,7 @@ class PreComp(_SparseModeBase):
     precomputed transition CDF for every edge whose source degree fits
     the row — a walk step there is one edge-row gather + compare-reduce.
     Edges of wider nodes fall back to the on-the-fly kernel on the
-    carried fused rows (pure VPU, no extra memory access) — the same
+    carried fused rows (no extra memory access) — the same
     transition law, computed instead of looked up. This replaces the
     round-1 [E, dpad] layout whose per-edge rows padded to the global
     max degree (the reference's ragged Sigma deg^2 concern): memory is
@@ -328,7 +328,7 @@ class PreComp(_SparseModeBase):
         # The build is chunked over fixed-size edge slices: the one-shot
         # form gathers cur_rows + prev_rows as [E, W] f32 temporaries,
         # which at the E*64 < 2^31 guard's admitted sizes (E ~ 33M) is
-        # tens of GB — past HBM long before the guard trips (the same
+        # tens of GB — past device memory long before the guard trips (the same
         # transient-footprint class as the reference's Sigma deg^2
         # discussion, ``pecanpy.py:442-507``). Per-edge CDF rows are
         # independent, so slicing is bit-identical to the one-shot

@@ -1,11 +1,15 @@
 """ctypes bindings for the native edgelist parser.
 
-Builds ``edgelist.cpp`` with g++ on first use (cached next to the source;
-rebuilt when the source is newer). Falls back cleanly: callers check
-``native_available()`` and use the pure-Python parser when the toolchain
-is missing.
+Builds the C++ sources with g++ on first use into a library next to
+them whose name carries a hash of the sources and compiler flags, so a
+library is only ever loaded for the exact sources in the tree (a copied
+or stale binary never matches). The build writes a temporary file and
+renames it into place, so concurrent processes never load a partial
+library. Falls back cleanly: callers check ``native_available()`` and use
+the pure-Python parser when the toolchain is missing.
 """
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -21,31 +25,36 @@ _SRCS = [
     os.path.join(_DIR, "seqsgns.cpp"),
     os.path.join(_DIR, "refwalker.cpp"),
 ]
-_LIB = os.path.join(_DIR, "_edgelist.so")
+_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _build_failed = False
 
 
+def _lib_path() -> str:
+    """Library path keyed by a hash of the sources and the flags."""
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for src in _SRCS:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(_DIR, f"_native-{h.hexdigest()[:16]}.so")
+
+
 def _build() -> Optional[ctypes.CDLL]:
     global _build_failed
     try:
-        stale = not os.path.exists(_LIB) or any(
-            os.path.getmtime(_LIB) < os.path.getmtime(src) for src in _SRCS
-        )
-        if stale:
+        path = _lib_path()
+        if not os.path.exists(path):
+            tmp = f"{path}.{os.getpid()}.tmp"
             subprocess.run(
-                [
-                    "g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-                    "-pthread", "-o", _LIB,
-                ]
-                + _SRCS,
+                ["g++"] + _FLAGS + ["-o", tmp] + _SRCS,
                 check=True,
                 capture_output=True,
                 text=True,
             )
-        lib = ctypes.CDLL(_LIB)
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(path)
     except (OSError, subprocess.CalledProcessError) as exc:
         warnings.warn(f"native edgelist parser unavailable: {exc}")
         _build_failed = True

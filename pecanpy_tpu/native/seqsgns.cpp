@@ -15,7 +15,7 @@
 //     (exactly like gensim with workers > 1); per-pair math identical
 //     to the single-thread loop.
 //
-// Both implement the TPU trainer's per-pair math with sequential
+// Both implement the device trainer's per-pair math with sequential
 // application, exposed to users as embed(trainer="sequential") /
 // CLI --trainer sequential for small-graph gensim-parity quality.
 //

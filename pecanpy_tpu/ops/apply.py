@@ -1,425 +1,36 @@
-"""Sparse-row update application without XLA scatter.
+"""Sparse-row update application for the SGNS tables.
 
-The SGNS update is "W[i] -= lr * capped-mean of the gradient rows with
-id i" for ~1e5-1e6 (id, grad) pairs per step against a [N, dim] table.
-XLA's scatter-add on TPU is catastrophically slow for this shape (cost
-scales with the TABLE, ~500x a plain copy), so the hot path is a Pallas
-kernel:
+The SGNS update is "W[i] -= lr * capped sum of the gradient rows with id
+i" for ~1e5 (id, grad) pairs per step against an [N, dim] table. The
+applier touches only the rows the stream names, never the whole table:
 
-1. sort the updates by destination row (one argsort of [R] int32 + one
-   row gather to permute the payload);
+1. sort the stream by destination row (one variadic sort carries the
+   counts and the permutation along with the keys);
 2. PRE-SCALE the payload on the stream: each destination row's total
    contribution count is an entry-wise function of the sorted stream
-   (two ``searchsorted``s of the sorted ids against themselves + one
-   cumsum of the counts), so ``lr * min(total, cap) / total`` folds into
-   the update rows *before* the kernel. Application becomes strictly
-   linear — ``table -= sum of scaled rows`` — which halves the kernel's
-   matmul work (no count accumulator) and lets independent streams merge
-   into one table pass (see ``apply_mean_updates_two``);
-3. build a VISIT LIST: the (table tile, update chunk) pairs that
-   intersect, tile-major (host-side jnp over ~R/CHUNK + N/TILE entries).
-   Only tiles that actually receive updates appear — untouched tiles are
-   never read or written (the output aliases the input buffer);
-4. one grid step per visit: Pallas pipelines the chunk/tile blocks via
-   data-dependent BlockSpec index maps read from scalar prefetch (the
-   v5e guide's "revisiting blocks" pattern — consecutive visits of one
-   tile keep it resident in VMEM), and each visit folds its 1024-row
-   chunk into the tile's per-row sums with a ONE-HOT MATMUL on the MXU:
-   ``onehot[TILE, CHUNK] @ upd[CHUNK, D]`` — the one-hot column of an
-   update row selects its destination row; rows outside the tile give
-   all-zero columns, which also makes cross-tile chunk sharing and
-   padding masking free. The last visit of a tile applies
-   ``tile - sums`` and resets the scratch.
+   (``_sorted_scales``: scan arithmetic, no [N]-sized array), so
+   ``lr * min(total, cap) / total`` folds into the update rows and
+   application becomes linear — ``table -= sum of scaled rows``. Two
+   streams with *independent normalization groups* (the SGNS
+   center-gradient and negative-gradient streams into W_out) therefore
+   merge into one pass under the composite sort key ``id * 2 + stream``;
+3. reduce each destination row's run of the sorted stream with a
+   segmented scan, then write every touched row exactly once.
 
-Merged streams: since application is linear after pre-scaling, two
-update streams with *independent normalization groups* (e.g. the SGNS
-center-gradient and negative-gradient streams into W_out) are sorted
-together under the composite key ``id * 2 + stream`` — the groups stay
-separate for the cap/total computation, then the combined stream runs
-ONE kernel pass instead of two full table streams.
-
-Design history (v5e, 500k rows into [1M, 128]): a per-entry scalar
-accumulation loop ran at ~90 cycles/row (58.5 ms); switching the fold to
-one-hot matmuls barely helped (45.9 ms) because the real cost was the
-per-tile machinery — manually sequenced DMAs and visiting all N/TILE
-tiles. The visit-list pipeline removes both; the pre-scaled linear form
-then removes the second (count) matmul per visit.
-
-The one-hot dots run in bf16 by default (4x MXU rate): the one-hot
-matrix is exact in bf16; the payload quantizes to ~3 decimal digits —
-far below SGD gradient noise (downstream micro-F1 benches pin quality).
-Set ``DOT_BF16 = False`` for f32 accumulation.
-
-bfloat16 tables: the kernel streams bf16 tiles, accumulates in f32, and
-writes back with **stochastic rounding** (pltpu.prng_random_bits +
-stochastic_round) — at lr ~1e-3 the per-step row movement is below the
-bf16 ulp of typical weights, so round-to-nearest would silently drop
-most updates; stochastic rounding keeps SGD unbiased. The CPU fallback
-(``_apply_scatter``) rounds to nearest (documented quality caveat; bf16
-is a TPU option).
+Step 3 is what keeps training deterministic. A scatter-add with repeated
+ids runs as atomics on a GPU, in an order that changes from run to run,
+so the same seed would give tables that differ in the last bits. Here
+the per-row sums are taken in the scan's fixed tree order and the final
+scatter has one writer per row: the same inputs give bit-identical
+tables on every run and every backend.
 """
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-# Table rows per tile (VMEM budget + one-hot dot height) and update rows
-# per chunk (one-hot dot contraction depth). The one-hot dot work per
-# kernel pass scales as ~(N + R) * CHUNK * dim — independent of TILE —
-# so CHUNK is the FLOPs lever; both stay env-tunable for sweeps.
-
-
-def _env_tile(name: str, default: int, multiple: int, reason: str) -> int:
-    """Parse a tiling env knob; a bad value warns and keeps the default
-    (importing the package must never crash on a stray env var)."""
-    raw = os.environ.get(name)
-    if raw is None:
-        return default
-    try:
-        val = int(raw)
-    except ValueError:
-        val = -1
-    if val <= 0 or val % multiple:
-        import warnings
-
-        warnings.warn(
-            f"ignoring {name}={raw!r}: must be a positive multiple of "
-            f"{multiple} ({reason}); using the default {default}",
-            stacklevel=2,
-        )
-        return default
-    return val
-
-
-# Defaults re-tuned in round 5 with TILE-aligned tables (the original
-# 1024/1024 point dated from sweeps whose signal was masked by per-call
-# pad/slice table copies — see BENCH.md "Round-5 re-examination"): the
-# calibrated cost model t = t0 + h*visits + k*onehot puts its optimum
-# near (2048, 256), and the aligned standalone block measures 2.43 ms
-# vs 4.39 ms at (1024, 1024). Sub-1024 CHUNK ships the ids block as a
-# sub-(8, 128)-tile (1, CHUNK/128, 128) int32 block and relies on
-# Mosaic's padding — bit-exactness at this shape is pinned on v5e by
-# benchmarks/check_apply_tpu.py; run it once on any new TPU generation.
-TILE = _env_tile(
-    "PECANPY_TPU_APPLY_TILE", 2048, 16,
-    "sublane tiling — bfloat16 tables, the on-TPU default, need 16-row "
-    "sublanes",
-)
-CHUNK = _env_tile(
-    "PECANPY_TPU_APPLY_CHUNK", 256, 128,
-    "the ids block ships as (1, CHUNK/128, 128) int32 lanes",
-)
-_LANE = 128
-_EPS = 1e-9
-
-# --- v2 applier (opt-in): one grid step per table tile, the sorted
-# stream DMA'd in tile-aligned K-row windows with explicit double
-# buffering. Motivation (see BENCH.md round-5 applier analysis): the
-# visit-list kernel's one-hot work totals N*CHUNK + R*TILE element
-# compares + MXU dots per pass — the N*CHUNK term scales with the TABLE
-# — and every (tile, chunk) visit re-fetches a full CHUNK*D payload
-# block. Windowing at the tile's own bounds cuts the tile-side term to
-# N*K (K = window rows << CHUNK) and the payload traffic to ~R*D, while
-# the per-tile inner fori_loop removes per-visit grid machinery. The
-# sorted stream makes this exact: a window may carry neighboring tiles'
-# rows, but their local ids fall outside [0, TILE) and the one-hot
-# masks them — every row folds into exactly its own tile.
-APPLY_V2 = os.environ.get("PECANPY_TPU_APPLY_V2", "0") == "1"
-K_WINDOW = _env_tile(
-    "PECANPY_TPU_APPLY_WINDOW", 512, 128,
-    "v2 stream windows DMA as [K, dim] blocks; K rows must lane-align",
-)
-
-# Run the one-hot scatter dots in bf16 (see module docstring).
-DOT_BF16 = True
 
 DEFAULT_UPDATE_CAP = 4.0  # max "pair-steps" a row absorbs per application
-
-# visit-flag bits (scalar-prefetch per grid step)
-_F_FIRST = 1  # first visit of this tile: zero the scratch
-_F_LAST = 2  # last visit of this tile: apply the row step, write out
-_F_NOOP = 4  # padding visit: touch nothing
-
-
-def _row_step(sums, cnts, lr, cap):
-    """-lr * sum * min(cnt, cap) / cnt  per row.
-
-    Rows with few contributions take the plain gradient SUM — the batch
-    equivalent of gensim applying each pair sequentially; hot rows are
-    capped at ``cap`` pair-steps per application so a row repeated
-    thousands of times in one chunk cannot blow past the sigmoid's
-    saturation region the sequential algorithm would have entered.
-    """
-    scale = jnp.minimum(cnts, cap) / jnp.maximum(cnts, _EPS)
-    return lr * sums * scale
-
-
-def _apply_scatter(table, ids, upd, cnt, lr, cap):
-    """Reference implementation: plain scatter (fast on CPU only)."""
-    t32 = table.astype(jnp.float32)
-    sums = jnp.zeros_like(t32).at[ids].add(upd.astype(jnp.float32))
-    cnts = jnp.zeros(table.shape[0], dtype=jnp.float32).at[ids].add(cnt)
-    out = t32 - _row_step(sums, cnts[:, None], lr, cap)
-    return out.astype(table.dtype)
-
-
-def _applier_kernel(
-    tiles_ref,  # [V] scalar-prefetch: table tile per visit (drives specs)
-    chunks_ref,  # [V] scalar-prefetch: update chunk per visit
-    flags_ref,  # [V] scalar-prefetch: FIRST/LAST/NOOP bits
-    seed_ref,  # [1] int32 scalar-prefetch: stochastic-rounding seed
-    tile_ref,  # [TILE, D] VMEM: this visit's table tile
-    ids_ref,  # [1, CHUNK/128, 128] VMEM: this visit's sorted dest rows
-    upd_ref,  # [CHUNK, D] VMEM: this visit's PRE-SCALED payload rows
-    out_ref,  # [TILE, D] VMEM (aliases the table buffer)
-    sums,  # [TILE, D] f32 VMEM scratch
-):
-    g = pl.program_id(0)
-    t = tiles_ref[g]
-    flags = flags_ref[g]
-
-    @pl.when((flags & _F_NOOP) == 0)
-    def _():
-        @pl.when((flags & _F_FIRST) != 0)
-        def _():
-            sums[:] = jnp.zeros_like(sums)
-
-        dot_t = jnp.bfloat16 if DOT_BF16 else jnp.float32
-        rows_iota = jax.lax.broadcasted_iota(jnp.int32, (TILE, CHUNK), 0)
-        # row-major relayout back to stream order; out-of-tile -> no row
-        local = ids_ref[:].reshape(1, CHUNK) - t * TILE
-        onehot = (rows_iota == local).astype(dot_t)
-        sums[:] = sums[:] + jax.lax.dot(
-            onehot, upd_ref[:].astype(dot_t),
-            preferred_element_type=jnp.float32,
-        )
-
-        @pl.when((flags & _F_LAST) != 0)
-        def _():
-            new = tile_ref[:].astype(jnp.float32) - sums[:]
-            if out_ref.dtype == jnp.bfloat16:
-                # lr-scale movements sit below the bf16 ulp of typical
-                # weights: stochastic rounding keeps SGD unbiased
-                pltpu.prng_seed(seed_ref[0] + t)
-                bits = pltpu.bitcast(
-                    pltpu.prng_random_bits(new.shape), jnp.uint32
-                )
-                out_ref[:] = pltpu.stochastic_round(
-                    new, bits, target_dtype=jnp.bfloat16
-                )
-            else:
-                out_ref[:] = new
-
-
-def _visit_plan(bounds, n_tiles, n_chunks):
-    """Tile-major (tile, chunk, flags) visit list from the tile bounds.
-
-    The real visit count is data-dependent; the list is padded to the
-    static bound ``n_chunks + n_tiles`` with NOOP visits that keep the
-    last real tile index (so no spurious block flush ever happens).
-    """
-    lo = bounds[:-1]
-    hi = bounds[1:]
-    nonempty = hi > lo
-    c_lo = lo // CHUNK
-    c_hi = jnp.maximum((hi + CHUNK - 1) // CHUNK, c_lo + 1)
-    n_visits_t = jnp.where(nonempty, c_hi - c_lo, 0)  # [n_tiles]
-    offsets = jnp.cumsum(n_visits_t)
-    v_real = offsets[-1]
-    v_max = n_chunks + n_tiles
-
-    v = jnp.arange(v_max, dtype=jnp.int32)
-    tile = jnp.searchsorted(offsets, v, side="right").astype(jnp.int32)
-    tile_c = jnp.minimum(tile, n_tiles - 1)
-    start_of = jnp.where(tile_c > 0, offsets[tile_c - 1], 0)
-    within = v - start_of
-    chunk = (c_lo[tile_c] + within).astype(jnp.int32)
-    first = (within == 0).astype(jnp.int32) * _F_FIRST
-    last = (within == n_visits_t[tile_c] - 1).astype(jnp.int32) * _F_LAST
-    noop = (v >= v_real).astype(jnp.int32) * _F_NOOP
-    flags = jnp.where(noop > 0, _F_NOOP, first | last)
-    # NOOP visits pin the last real visit's tile so no new flush occurs
-    last_tile = tile_c[jnp.maximum(v_real - 1, 0)]
-    tile_out = jnp.where(noop > 0, last_tile, tile_c)
-    chunk_out = jnp.where(noop > 0, 0, jnp.minimum(chunk, n_chunks - 1))
-    return tile_out, chunk_out, flags
-
-
-def _apply_pallas(table, ids_s, upd_s, bounds, seed):
-    """Visit-list applier over a PRE-SORTED, PRE-SCALED stream."""
-    n, d = table.shape
-    n_tiles = n // TILE
-    n_chunks = ids_s.shape[0]
-    tiles, chunks, flags = _visit_plan(bounds, n_tiles, n_chunks)
-    v = tiles.shape[0]
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(v,),
-        in_specs=[
-            pl.BlockSpec(
-                (TILE, d),
-                lambda g, t, c, f, sd: (t[g], 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (1, CHUNK // _LANE, _LANE),
-                lambda g, t, c, f, sd: (c[g], 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (CHUNK, d),
-                lambda g, t, c, f, sd: (c[g], 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (TILE, d),
-            lambda g, t, c, f, sd: (t[g], 0),
-            memory_space=pltpu.VMEM,
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((TILE, d), jnp.float32),
-        ],
-    )
-    return pl.pallas_call(
-        _applier_kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n, d), table.dtype),
-        input_output_aliases={4: 0},  # table buffer reused for the output
-    )(tiles, chunks, flags, seed, table, ids_s, upd_s)
-
-
-def _applier_kernel_v2(
-    w0_ref,  # [n_tiles] scalar-prefetch: first stream window per tile
-    nw_ref,  # [n_tiles] scalar-prefetch: window count per tile
-    seed_ref,  # [1] int32 scalar-prefetch: stochastic-rounding seed
-    tile_ref,  # [TILE, D] VMEM: this tile (Mosaic-pipelined)
-    ids_ref,  # [R/K, 1, K] HBM: sorted dest rows, window-blocked
-    upd_ref,  # [R, D] HBM: PRE-SCALED payload rows
-    out_ref,  # [TILE, D] VMEM (aliases the table buffer)
-    acc,  # [TILE, D] f32 VMEM scratch
-    ids_buf,  # [2, 1, K] int32 VMEM scratch (double-buffered windows)
-    upd_buf,  # [2, K, D] VMEM scratch
-    sems,  # [2, 2] DMA semaphores (slot x {ids, upd})
-):
-    g = pl.program_id(0)
-    t = g  # block index == tile index (identity specs)
-    base = w0_ref[g]
-    nwin = nw_ref[g]
-    k = ids_buf.shape[2]
-    dot_t = jnp.bfloat16 if DOT_BF16 else jnp.float32
-
-    def dma(slot, j):
-        w = base + j
-        return (
-            pltpu.make_async_copy(
-                ids_ref.at[w], ids_buf.at[slot], sems.at[slot, 0]
-            ),
-            pltpu.make_async_copy(
-                upd_ref.at[pl.ds(w * k, k), :],
-                upd_buf.at[slot],
-                sems.at[slot, 1],
-            ),
-        )
-
-    @pl.when(nwin > 0)
-    def _():
-        for d in dma(0, 0):
-            d.start()
-
-    acc[:] = jnp.zeros_like(acc)
-    rows_iota = jax.lax.broadcasted_iota(
-        jnp.int32, (tile_ref.shape[0], k), 0
-    )
-
-    def body(j, carry):
-        slot = jax.lax.rem(j, 2)
-
-        @pl.when(j + 1 < nwin)
-        def _():
-            for d in dma(jax.lax.rem(j + 1, 2), j + 1):
-                d.start()
-
-        for d in dma(slot, j):
-            d.wait()
-        # rows of neighboring tiles ride the shared boundary windows;
-        # their local ids fall outside [0, TILE) and the one-hot masks
-        # them, so every stream row folds into exactly its own tile
-        local = ids_buf[slot] - t * tile_ref.shape[0]  # [1, K]
-        onehot = (rows_iota == local).astype(dot_t)
-        acc[:] = acc[:] + jax.lax.dot(
-            onehot, upd_buf[slot].astype(dot_t),
-            preferred_element_type=jnp.float32,
-        )
-        return carry
-
-    jax.lax.fori_loop(0, nwin, body, 0)
-
-    new = tile_ref[:].astype(jnp.float32) - acc[:]
-    if out_ref.dtype == jnp.bfloat16:
-        pltpu.prng_seed(seed_ref[0] + t)
-        bits = pltpu.bitcast(pltpu.prng_random_bits(new.shape), jnp.uint32)
-        out_ref[:] = pltpu.stochastic_round(
-            new, bits, target_dtype=jnp.bfloat16
-        )
-    else:
-        out_ref[:] = new
-
-
-def _apply_pallas_v2(table, ids_s, upd_s, bounds, seed, interpret=False):
-    """Per-tile windowed applier over a PRE-SORTED, PRE-SCALED stream.
-
-    One grid step per table tile (untouched tiles copy through — with
-    SGNS-sized streams essentially every tile is touched); each step
-    pulls its K-row stream windows from HBM with explicit
-    double-buffered DMA and folds them in with masked one-hot dots.
-    """
-    n, d = table.shape
-    k = K_WINDOW
-    n_tiles = n // TILE
-    lo = bounds[:-1]
-    w0 = lo // k
-    nw = jnp.maximum(-(-(bounds[1:] - w0 * k) // k), 0).astype(jnp.int32)
-    nw = jnp.where(bounds[1:] > lo, nw, 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec(
-                (TILE, d),
-                lambda g, w, nwn, sd: (g, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(memory_space=pl.ANY),  # ids windows (HBM)
-            pl.BlockSpec(memory_space=pl.ANY),  # payload rows (HBM)
-        ],
-        out_specs=pl.BlockSpec(
-            (TILE, d),
-            lambda g, w, nwn, sd: (g, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((TILE, d), jnp.float32),
-            pltpu.VMEM((2, 1, k), jnp.int32),
-            pltpu.VMEM((2, k, d), upd_s.dtype),
-            pltpu.SemaphoreType.DMA((2, 2)),
-        ],
-    )
-    return pl.pallas_call(
-        _applier_kernel_v2,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n, d), table.dtype),
-        input_output_aliases={3: 0},
-        interpret=interpret,
-    )(
-        w0.astype(jnp.int32), nw, seed, table,
-        ids_s.reshape(-1, 1, k), upd_s,
-    )
+_EPS = 1e-9
 
 
 def _sorted_scales(keys_s, cnt_s, lr, cap):
@@ -427,14 +38,18 @@ def _sorted_scales(keys_s, cnt_s, lr, cap):
 
     ``total`` is the summed count of the entry's key group. Over a SORTED
     stream the group totals fall out of pure scan arithmetic — no
-    searchsorted (XLA lowers it to log(R) serialized gather rounds, ~40ms
-    at R=500k on TPU) and no [N]-sized array:
+    searchsorted and no [N]-sized array:
 
     * ``cum`` (inclusive cumsum of counts) is nondecreasing, so the
       nearest group END at-or-right of i is ``cummin(reverse)`` of cum
       masked to end positions, and the nearest group START at-or-left is
       ``cummax`` of the exclusive cumsum masked to start positions.
 
+    Rows with few contributions take the plain gradient SUM — the batch
+    equivalent of gensim applying each pair sequentially; hot rows are
+    capped at ``cap`` pair-steps per application so a row repeated
+    thousands of times in one chunk cannot blow past the sigmoid's
+    saturation region the sequential algorithm would have entered.
     Exact for the integer-valued counts SGNS produces.
     """
     cnt_f = cnt_s.astype(jnp.float32)
@@ -450,76 +65,52 @@ def _sorted_scales(keys_s, cnt_s, lr, cap):
     return lr * jnp.minimum(tot, cap) / jnp.maximum(tot, _EPS)
 
 
-def _finalize_and_run(table, ids_s, upd_s, rng_seed, interpret=False):
-    """Pad a sorted, pre-scaled stream + the table; run the kernel."""
-    n, d = table.shape
-    if n % TILE:
-        table = jnp.pad(table, ((0, TILE - n % TILE), (0, 0)))
-    pad_d = (_LANE - d % _LANE) % _LANE
-    if pad_d:
-        table = jnp.pad(table, ((0, 0), (0, pad_d)))
-        upd_s = jnp.pad(upd_s, ((0, 0), (0, pad_d)))
-    n_pad = table.shape[0]
-    r = ids_s.shape[0]
-    unit = K_WINDOW if APPLY_V2 else CHUNK
-    r_pad = -(-r // unit) * unit
-    # sentinel n_pad: local = n_pad - t*TILE >= TILE for every tile, so
-    # padding rows never match a one-hot row
-    ids_s = jnp.pad(ids_s, (0, r_pad - r), constant_values=n_pad)
-    upd_s = jnp.pad(upd_s, ((0, r_pad - r), (0, 0)))
-    edges = jnp.arange(n_pad // TILE + 1, dtype=jnp.int32) * TILE
-    bounds = jnp.searchsorted(ids_s, edges).astype(jnp.int32)
-    if rng_seed is None:
-        rng_seed = jnp.int32(0)
-    seed = rng_seed.reshape(1).astype(jnp.int32)
-    if APPLY_V2:
-        out = _apply_pallas_v2(
-            table, ids_s, upd_s, bounds, seed, interpret=interpret
-        )
-    else:
-        out = _apply_pallas(
-            table,
-            # ids ship as [R/CHUNK, CHUNK/128, 128] (row-major = stream
-            # order): one (1, CHUNK/128, 128) block per visit, lane-tiled
-            ids_s.reshape(-1, CHUNK // _LANE, _LANE),
-            upd_s,
-            bounds,
-            seed,
-        )
-    return out[:n, :d]
+def _segment_sums(ids_s, upd_s):
+    """Inclusive running sums of ``upd_s`` within each run of equal ids.
+
+    A segmented ``associative_scan``: its combine order is fixed by the
+    array length alone, so the sums are bit-reproducible (unlike atomics).
+    At a run's last entry the value is the run's total.
+    """
+    start = jnp.concatenate(
+        [jnp.ones(1, dtype=bool), ids_s[1:] != ids_s[:-1]]
+    )
+
+    def combine(a, b):
+        fa, va = a
+        fb, vb = b
+        return fa | fb, jnp.where(fb[..., None], vb, va + vb)
+
+    _, sums = jax.lax.associative_scan(combine, (start, upd_s))
+    return sums
 
 
-def _pallas_apply_one(table, ids, upd, cnt, lr, cap, rng_seed,
-                      interpret=False):
-    """Sort + pre-scale one stream, run the visit-list kernel."""
-    if ids.shape[0] == 0:  # empty stream: nothing to apply
+def _apply_sorted(table, keys, upd, cnt, lr, cap_even, cap_odd):
+    """Apply a keyed stream (``key = id * 2 + stream``) in one pass."""
+    if keys.shape[0] == 0:  # empty stream: nothing to apply
         return table
-    # Variadic sort carries (ids, cnt) through the sort network instead
-    # of permuting them with post-sort 1-D gathers: on TPU a scalar
-    # gather runs ~6.6 ns/element (latency-bound), so the two gathers
-    # cost ~1.3 ms at 100k rows while the sort itself is ~0.1 ms
-    # (round-5 trace, BENCH.md). Stable sort + iota tiebreak makes the
-    # permutation identical to argsort — bit-exact. The [R, dim]
-    # payload cannot ride the sort (operand shapes must match), but row
-    # gathers stream near roofline and stay as-is.
-    r = ids.shape[0]
-    ids_s, cnt_s, order = jax.lax.sort(
-        (ids, cnt.astype(jnp.float32), jax.lax.iota(jnp.int32, r)),
+    n = table.shape[0]
+    keys_s, cnt_s, order = jax.lax.sort(
+        (keys, cnt.astype(jnp.float32),
+         jax.lax.iota(jnp.int32, keys.shape[0])),
         num_keys=1,
     )
-    scale = _sorted_scales(ids_s, cnt_s, lr, cap)
+    cap_s = jnp.where((keys_s & 1) == 1, cap_odd, cap_even)
+    scale = _sorted_scales(keys_s, cnt_s, lr, cap_s)
     upd_s = upd[order].astype(jnp.float32) * scale[:, None]
-    if DOT_BF16:
-        # the kernel's dot casts the payload to bf16 anyway — shipping it
-        # bf16 halves the stream traffic and the per-visit payload DMA
-        upd_s = upd_s.astype(jnp.bfloat16)
-    return _finalize_and_run(table, ids_s, upd_s, rng_seed, interpret)
+    ids_s = keys_s >> 1
+    sums = _segment_sums(ids_s, upd_s)
+    last = jnp.concatenate(
+        [ids_s[1:] != ids_s[:-1], jnp.ones(1, dtype=bool)]
+    )
+    new = (table[ids_s].astype(jnp.float32) - sums).astype(table.dtype)
+    # one writer per row: every entry but a run's last targets row n,
+    # which mode="drop" discards
+    return table.at[jnp.where(last, ids_s, n)].set(new, mode="drop")
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("use_pallas", "cap_a", "cap_b"),
-    donate_argnums=(0,),
+    jax.jit, static_argnames=("cap_a", "cap_b"), donate_argnums=(0,)
 )
 def apply_mean_updates_two(
     table: jax.Array,
@@ -530,39 +121,19 @@ def apply_mean_updates_two(
     upd_b: jax.Array,
     cnt_b: jax.Array,
     lr: jax.Array,
-    use_pallas: bool = False,
     cap_a: float = DEFAULT_UPDATE_CAP,
     cap_b: float = DEFAULT_UPDATE_CAP,
-    rng_seed: jax.Array = None,
 ) -> jax.Array:
-    """Apply two independent capped-mean update streams in ONE table pass.
+    """Apply two independent capped-sum update streams in ONE table pass.
 
     Semantics: ``apply_mean_updates(apply_mean_updates(table, a...),
-    b...)`` — exactly, because application is linear in the pre-scaled
-    rows. The streams keep separate normalization groups (counts and
-    caps), which is the point: merging them into one mean would let the
-    more numerous stream drown the other (see the w_out note in
-    ``models/sgns.py``). Group separation rides the composite sort key
-    ``id * 2 + stream`` (ids must stay < 2^30), so the per-group totals
-    fall out of the same searchsorted machinery as the one-stream case
-    and the combined stream makes a single pass over the touched tiles —
-    the dominant cost when both streams touch most of the table.
+    b...)`` up to float summation order, because application is linear
+    in the pre-scaled rows. The streams keep separate normalization
+    groups (counts and caps), which is the point: merging them into one
+    group would let the more numerous stream drown the other (see the
+    w_out note in ``models/sgns.py``). Group separation rides the
+    composite sort key ``id * 2 + stream`` (ids must stay < 2^30).
     """
-    if not use_pallas:
-        out = _apply_scatter(table, ids_a, upd_a, cnt_a, lr, cap_a)
-        return _apply_scatter(out, ids_b, upd_b, cnt_b, lr, cap_b)
-    return _pallas_apply_two(
-        table, ids_a, upd_a, cnt_a, ids_b, upd_b, cnt_b, lr,
-        cap_a, cap_b, rng_seed,
-    )
-
-
-def _pallas_apply_two(table, ids_a, upd_a, cnt_a, ids_b, upd_b, cnt_b,
-                      lr, cap_a, cap_b, rng_seed, interpret=False):
-    """Merge-sort + pre-scale the two streams, run ONE kernel pass."""
-    r_a, r_b = ids_a.shape[0], ids_b.shape[0]
-    if r_a + r_b == 0:
-        return table
     keys = jnp.concatenate([ids_a * 2, ids_b * 2 + 1])
     upd = jnp.concatenate(
         [upd_a.astype(jnp.float32), upd_b.astype(jnp.float32)]
@@ -570,44 +141,24 @@ def _pallas_apply_two(table, ids_a, upd_a, cnt_a, ids_b, upd_b, cnt_b,
     cnt = jnp.concatenate(
         [cnt_a.astype(jnp.float32), cnt_b.astype(jnp.float32)]
     )
-    # variadic sort: see _pallas_apply_one — saves two ~0.9 ms scalar
-    # permute gathers at the merged-stream size, bit-exactly
-    keys_s, cnt_s, order = jax.lax.sort(
-        (keys, cnt, jax.lax.iota(jnp.int32, keys.shape[0])),
-        num_keys=1,
-    )
-    cap_s = jnp.where((keys_s & 1) == 1, cap_b, cap_a)
-    scale = _sorted_scales(keys_s, cnt_s, lr, cap_s)
-    upd_s = upd[order] * scale[:, None]
-    if DOT_BF16:
-        upd_s = upd_s.astype(jnp.bfloat16)
-    return _finalize_and_run(
-        table, (keys_s >> 1).astype(jnp.int32), upd_s, rng_seed, interpret
-    )
+    return _apply_sorted(table, keys, upd, cnt, lr, cap_a, cap_b)
 
 
-@functools.partial(
-    jax.jit, static_argnames=("use_pallas", "cap"), donate_argnums=(0,)
-)
+@functools.partial(jax.jit, static_argnames=("cap",), donate_argnums=(0,))
 def apply_mean_updates(
     table: jax.Array,
     ids: jax.Array,
     upd: jax.Array,
     cnt: jax.Array,
     lr: jax.Array,
-    use_pallas: bool = False,
     cap: float = DEFAULT_UPDATE_CAP,
-    rng_seed: jax.Array = None,
 ) -> jax.Array:
     """table[i] -= lr * capped-sum of the upd rows with id i.
 
-    See ``_row_step`` for the exact rule (gradient sum, capped at
-    UPDATE_CAP contributions per row per application). Rows not present
-    in ``ids`` are unchanged; entries with cnt 0 and zero upd rows are
-    no-ops (padding-friendly). ``ids`` must be < table rows.
+    The rule: the gradient sum of row i's entries times
+    ``min(total, cap) / total``, where ``total`` sums their counts
+    (see ``_sorted_scales``). Rows not present in ``ids`` are unchanged;
+    entries with cnt 0 and zero upd rows are no-ops (padding-friendly).
+    ``ids`` must be < table rows.
     """
-    if not use_pallas:
-        return _apply_scatter(table, ids, upd, cnt, lr, cap)
-    return _pallas_apply_one(table, ids, upd, cnt, lr, cap, rng_seed)
-
-
+    return _apply_sorted(table, ids * 2, upd, cnt, lr, cap, cap)

@@ -5,8 +5,8 @@ The fused row layout (``ops/layout.py``) pads every node to the max degree
 (the same degree-skew wall that forces the reference to split its modes,
 ``README.md:68-82``). Nodes whose degree exceeds ``degree_cap`` therefore
 leave the fused table and are served by two O(E_hub) flat structures,
-both shaped so that every access is ONE 8-lane row gather (narrow-row
-gathers on TPU cost the same for width 1 and width 8 — pack accordingly):
+both shaped so that every access is ONE 8-lane row gather (one row
+access per lookup):
 
 * **Packed edge rows** (``edge_pack [E_hub, 8]``): one row per hub edge
   holding a fully *resolved* Vose alias slot — acceptance probability plus

@@ -1,8 +1,8 @@
-"""Fused-row device layout for TPU walk kernels.
+"""Fused-row device layout for the batched walk kernels.
 
 The reference walks a scalar CSR one node at a time (Numba closures over
 ``indptr``/``indices``/``data``, ``src/pecanpy/rw/sparse_rw.py:133-139``).
-On TPU the equivalent structure is a *fused padded row table*: everything a
+On the device the equivalent structure is a *fused padded row table*: everything a
 walk step needs about a node — neighbor ids, edge weights, and mode-specific
 extras (noise thresholds of the neighbors, precomputed CDFs) — lives in ONE
 fixed-width float32 row, channel-packed:
@@ -11,13 +11,12 @@ fixed-width float32 row, channel-packed:
 
 so a batch of B walkers fetches all per-node state with a single gather.
 
-Why one wide row instead of separate nbr/wgt matrices: on TPU (v5e,
-re-measured round 2 — ``benchmarks/micro_gather.py``) gather throughput is
-descriptor-rate-bound at ~50M rows/s and nearly independent of row width
-from 8 to 256 lanes, so the cost unit is the ROW ACCESS, not the byte.
-Fusing the channels turns 2-4 row accesses per walk step into one (~7x
-total walk throughput). Memory is free: the TPU tiles the minor dimension
-to 128 lanes anyway, so [N, 38] and [N, 64] occupy identical HBM.
+Why one wide row instead of separate nbr/wgt matrices: fusing the
+channels turns 2-4 row accesses per walk step into one. The layout was
+tuned where gather cost was per row access, not per byte; on a GPU a
+gather costs bytes (32-byte sectors) plus latency, so the 64-lane
+padding below is paid in bytes on every gather. Not re-measured on the
+GPU yet.
 
 Layout invariants (the transition kernels rely on all of these):
 
@@ -32,7 +31,7 @@ Layout invariants (the transition kernels rely on all of these):
 * ``thr`` channel (node2vec+ modes) holds the noise threshold of the
   *neighbor* in that slot: ``thr[i, j] = threshold[nbr[i, j]]``; padding 1.0.
   The current node's own threshold is recomputed on the fly from the wgt
-  channel (pure VPU math — cheaper than another memory access).
+  channel (elementwise math — cheaper than another memory access).
 * ``cdf`` channel (PreComp* modes) holds the normalized inclusive CDF of the
   node's first-order transition distribution; padding 1.0.
 
@@ -45,7 +44,6 @@ neighbor hashes, ``ops/hubs.py``) driving exact rejection sampling
 pure fused path (``has_hubs`` is static).
 """
 import dataclasses
-import os
 from typing import Optional, Tuple
 
 import jax
@@ -54,11 +52,11 @@ import numpy as np
 
 from pecanpy_tpu.ops import hubs as hubs_lib
 
-LANE = 64  # fused channel width granularity (f32 lanes; fast-gather floor)
+LANE = 64  # fused channel width granularity (f32 lanes; unmeasured on GPU)
 
 # Nodes above this degree leave the fused table for the flat hub structures
-# (see ops/hubs.py). 128 keeps the fused all-pairs membership test cheap on
-# the VPU while covering the bulk of nodes on real power-law graphs.
+# (see ops/hubs.py). 128 keeps the fused all-pairs membership test cheap
+# while covering the bulk of nodes on real power-law graphs.
 DEFAULT_DEGREE_CAP = 128
 
 
@@ -66,14 +64,13 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-# Hub-table row shapes. Measured on v5e (slope-timed, round 2): random
-# row gathers are descriptor-rate-bound at ~73M rows/s for 8-lane rows
-# but ~115M rows/s for 64-lane rows — wider rows gather FASTER per
-# descriptor. Both hub tables therefore store SUPER-ROWS of 64 lanes:
+# Hub-table row shapes. Both hub tables store SUPER-ROWS of 64 lanes:
 # 8 alias slots (8 lanes each) or 4 hash buckets (16 lanes each) per
 # stored row; a fetch gathers the super-row and mask-selects the logical
-# sub-row on the VPU. Memory is unchanged (pure reshape of the flat
-# table, padded to a whole super-row at the end).
+# sub-row. This was tuned where wider rows gathered faster per row
+# access; on a GPU it moves 8x the bytes of one logical row and is not
+# re-measured yet. Memory is unchanged (pure reshape of the flat table,
+# padded to a whole super-row at the end).
 HB_WIDTH = 2 * hubs_lib.BUCKET_WIDTH  # 8 key lanes (int32 bitcast) + 8 vals
 SUPER_W = 64  # stored row width of both hub tables
 EP_SUPER = SUPER_W // hubs_lib.EP_WIDTH  # alias slots per stored row (8)
@@ -231,13 +228,14 @@ class DeviceCSR:
         """[..., EP_WIDTH] resolved alias slot rows by global slot index.
 
         The proposal step of the rejection sampler (``ops/rejection.py``).
-        One 64-lane super-row gather (the fast-gather width) + a VPU
-        mask-select of the slot's 8-lane sub-row.
+        One 64-lane super-row gather + a mask-select of the slot's
+        8-lane sub-row.
         """
         r = self._fetch_ep_super(slot // EP_SUPER)
         # select in the INT32 domain: the rows carry int32 ids bitcast
         # into float lanes, which are denormals a float add would flush
-        # to zero on TPU; integer adds keep every bit pattern intact
+        # to zero on a flush-to-zero backend; integer adds keep every bit
+        # pattern intact
         ri = jax.lax.bitcast_convert_type(r, jnp.int32).reshape(
             *r.shape[:-1], EP_SUPER, hubs_lib.EP_WIDTH
         )
@@ -249,7 +247,7 @@ class DeviceCSR:
     def fetch_bucket(self, bucket: jax.Array):
         """(keys [..., 8] int32, vals [..., 8] f32) of one hash bucket.
 
-        One 64-lane super-row gather + VPU select of the bucket's 16-lane
+        One 64-lane super-row gather + a select of the bucket's 16-lane
         sub-row; the key and value halves ride in the same sub-row.
         """
         r = self._fetch_hb_super(bucket // HB_SUPER)
@@ -415,10 +413,10 @@ def build_device_csr(
             (False), or unknown (None — detected via ``edges_symmetric``,
             one host lexsort pass).
         to_device: transfer the tables to the default device (the normal
-            single-chip path). False leaves every leaf as host numpy —
+            single-device path). False leaves every leaf as host numpy —
             the edge-partitioned pipeline device_puts each shard's slice
             directly (``parallel/distgraph.shard_graph``), so a graph
-            bigger than one chip's HBM never materializes on one chip.
+            bigger than one device's memory never lands on one device.
     """
     indptr = np.asarray(indptr, dtype=np.int64)
     indices = np.asarray(indices, dtype=np.int64)
@@ -445,12 +443,11 @@ def build_device_csr(
         # long before the PreComp E * 64 guard can trip. Hard byte
         # budget (same guard class as the hub int32 address checks);
         # the reference's check_mode heuristics give the same advice.
+        from pecanpy_tpu.utils.budget import FUSED, budget_bytes
+
         n_channels = 2 + int(with_thresholds) + int(with_cdf)
         fused_bytes = num_nodes * dpad * n_channels * 4
-        budget = (
-            int(os.environ.get("PECANPY_TPU_FUSED_BUDGET_MB", "8192"))
-            * (1 << 20)
-        )
+        budget = budget_bytes(FUSED)
         if fused_bytes > budget:
             raise ValueError(
                 f"uncapped fused layout needs {num_nodes} nodes x {dpad} "

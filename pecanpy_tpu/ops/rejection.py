@@ -10,7 +10,7 @@ regardless of degree:
    rows draw from their packed alias rows (ONE 8-lane gather: the row
    carries the acceptance probability plus the neighbor/weight of the slot
    and of its alias target, ``ops/hubs.py``); capped rows draw from their
-   carried fused row (pure VPU cumsum, no memory).
+   carried fused row (elementwise cumsum, no memory access).
 2. **Bias evaluation** for the single candidate x: the node2vec factor
    alpha(x) in {1/p, 1, 1/q} (or the node2vec+ continuous alpha) needs one
    membership test "is x a neighbor of prev" — ONE 8-lane gather of the
@@ -19,11 +19,11 @@ regardless of degree:
    alpha_max = max(1/p, 1, 1/q) bounds every factor; otherwise retry.
 
 This is the classic rejection formulation of second-order walks (used by
-CPU/GPU systems like KnightKing) recast for TPU. The batch dimension makes
-the naive loop-until-everyone-accepts catastrophic — the max of B~1e5
-geometric variables is ~30 rounds — and narrow-row gathers are
-descriptor-rate-bound (~30-50M rows/s), so EVERY lane in a trial batch
-costs real memory transactions whether or not it needs a sample. The
+CPU/GPU systems like KnightKing) recast for batched walkers. The batch
+dimension makes the naive loop-until-everyone-accepts catastrophic — the
+max of B~1e5 geometric variables is ~30 rounds — and EVERY lane in a
+trial batch costs real memory transactions whether or not it needs a
+sample. The
 sampler therefore never runs a full-batch round: lanes that need the
 rejection path are *compacted first* (scatter-free: a cumsum +
 searchsorted picks the first S pending lanes), and every phase runs on a
@@ -57,11 +57,11 @@ from pecanpy_tpu.ops.transition import row_thresholds
 _EPS = 1e-30
 _KNUTH = np.uint32(2654435761)  # plain numpy: no backend init at import
 
-# Knobs swept on v5e (benchmarks/tune_rejection.py, 1M-node Chung-Lu
-# mixed batch). Descriptor count is the cost model: a phase with S lanes
-# and T trials issues ~2*S*T narrow-row gathers, so phase 1 sizes to the
-# typical active fraction (~B/2 covers it) with few trials, and sweeps
-# re-compact the geometric tail into B/8 blocks.
+# Knobs of the per-step sampler, swept on another accelerator (1M-node
+# Chung-Lu mixed batch) and not yet re-measured on the GPU. A phase with
+# S lanes and T trials issues ~2*S*T narrow-row gathers, so phase 1 sizes
+# to the typical active fraction (~B/2 covers it) with few trials, and
+# sweeps re-compact the geometric tail into B/8 blocks.
 FIRST_ROUND_TRIALS = 2  # candidates per lane in the phase-1 blocks
 FIRST_FRACTION = 4  # phase-1 sub-batch = B / FIRST_FRACTION per group
 SWEEP_TRIALS = 4  # candidates per lane in each compacted sweep
@@ -75,8 +75,7 @@ def alias_propose(
     """Hub-path proposal: one packed alias-row gather per candidate.
 
     Returns ([B] x, [B] w(cur, x)); only meaningful where the row is a
-    hub. (Strictly flat [B] shapes — a [B, T] trial axis would pay TPU
-    sublane padding on the tiny T dim; see ``_trial_block``.)
+    hub. (Strictly flat [B] shapes — see ``_trial_block``.)
     """
     k_slot, k_acc = jax.random.split(key)
     deg = dg.rows_degree(cur_rows)
@@ -101,7 +100,7 @@ def alias_propose(
 def fused_propose(
     dg: DeviceCSR, key: jax.Array, cur_rows: jax.Array, use_cdf: bool
 ) -> Tuple[jax.Array, jax.Array]:
-    """Capped-row proposal from the carried fused row (pure VPU)."""
+    """Capped-row proposal from the carried fused row (no memory access)."""
     if use_cdf:
         cdf = dg.rows_cdf(cur_rows)
     else:
@@ -207,8 +206,7 @@ def _expand(sub: jax.Array, pos: jax.Array, valid: jax.Array, fill):
 
     The scatter-free return path of the tiered trial block: compacted
     hub results come back to full-batch lanes through each lane's
-    compaction RANK — an elementwise gather, which on TPU costs noise
-    next to the scatter it replaces.
+    compaction RANK — an elementwise gather in place of a scatter.
     """
     v = sub[jnp.minimum(pos, sub.shape[0] - 1)]
     return jnp.where(valid, v, fill)
@@ -416,10 +414,10 @@ def _trial_block(
     the caller zeroes those lanes' atom mass so the proposal is a pure
     first-order draw).
 
-    The T trials run as a STATIC Python loop of flat [B] evaluations —
-    a [B, T] trial axis looks natural but pays TPU sublane padding on
-    the tiny T dim (measured 2.3x the flat cost at T=2), while T
-    sequential flat blocks lay out clean and cost exactly T x one trial.
+    The T trials run as a STATIC Python loop of flat [B] evaluations
+    rather than a [B, T] trial axis, whose tiny minor dimension pads
+    badly on some accelerators; T sequential flat blocks cost exactly
+    T x one trial.
 
     ``alpha_np`` bounds the bias over non-return candidates
     (max(1, 1/q)). With the return-edge atom (``theta``/``wp`` set), a
@@ -462,10 +460,10 @@ def _compact_indices(pending: jax.Array, s: int):
     The lane holding the j-th pending slot is the searchsorted position
     of j+1 in the (monotone) cumsum of the pending mask — but BOTH
     ``jnp.searchsorted`` (log(B) serialized element-gather rounds) and a
-    scatter-built slot table cost milliseconds at walker-batch sizes on
-    TPU. Instead the cumsum reshapes to [B/128, 128] and the search runs
-    blocked: a broadcast compare against the per-block maxima picks the
-    block (pure VPU), one 128-lane ROW gather fetches it, and a second
+    scatter-built slot table are avoided here. Instead the cumsum
+    reshapes to [B/128, 128] and the search runs blocked: a broadcast
+    compare against the per-block maxima picks the block, one 128-lane
+    ROW gather fetches it, and a second
     broadcast compare picks the lane — two compares and one fast-path
     row gather total.
 

@@ -9,8 +9,8 @@ are batched over thousands of walkers:
   compare-reduce per batch, no normalization needed.
 * ``alias_build`` — Vose construction vectorized across rows with
   ``vmap`` of a fixed-trip-count ``fori_loop`` (the per-row worklist
-  algorithm is sequential, but every row runs independently, so the TPU
-  runs R rows in lockstep).
+  algorithm is sequential, but every row runs independently, so the
+  device runs R rows in lockstep).
 * ``alias_draw`` — O(1) per walker: one randint, two flat gathers, one
   Bernoulli accept.
 """
@@ -21,8 +21,8 @@ import jax.numpy as jnp
 def pick_int_columns(values: jax.Array, choice: jax.Array) -> jax.Array:
     """Select values[b, choice[b]] for int32 rows via a one-hot masked sum.
 
-    ``take_along_axis`` on a value (non-table) array lowers to a slow
-    per-element gather on TPU; a compare + masked reduce stays on the VPU.
+    A compare + masked reduce in place of ``take_along_axis``, which
+    lowers to a per-element gather (not yet compared on the GPU).
     Exact for any int32 payload (no float round-trip).
     """
     cols = jnp.arange(values.shape[-1], dtype=jnp.int32)
@@ -173,7 +173,7 @@ def alias_draw(
 
     Reference draw (``pecanpy.py:668-677``): ``kk = randint(k)``; return kk
     if ``rand() < q[kk]`` else ``j[kk]``. Here the two table reads are flat
-    HBM gathers — O(1) per walker regardless of degree.
+    device-memory gathers — O(1) per walker regardless of degree.
     """
     k_int, k_unif = jax.random.split(key)
     b = row.shape[0]

@@ -7,7 +7,7 @@ weights over the padded neighbor slots of the current nodes:
 
 where the rows are channel-packed fused rows (see ``ops/layout.py``),
 pre-gathered by the walk engine and threaded through the scan carry — so a
-2nd-order step touches HBM exactly once (the gather of the *next* node's
+2nd-order step touches device memory exactly once (the gather of the *next* node's
 row), instead of the reference's four row reads per step.
 
 Sampling by inverse CDF consumes unnormalized weights directly, so the
@@ -16,9 +16,9 @@ kernels skip the final normalization the reference performs
 
 The reference computes these per node with scalar Numba loops and a
 sorted-merge set difference (``isnotin``, ``sparse_rw.py:142-230``). The
-TPU formulation replaces the merge with an all-pairs equality mask over the
-two padded rows — one fused [B, D, D] VPU pass with no memory traffic
-(both rows are already in registers/VMEM). Padding safety: padded slots
+batched formulation replaces the merge with an all-pairs equality mask over
+the two padded rows — one fused [B, D, D] elementwise pass with no extra
+memory traffic (both rows are already gathered). Padding safety: padded slots
 carry weight 0 and the sentinel index N, so whatever bias factor they pick
 up, their probability stays 0.
 
@@ -60,7 +60,7 @@ def row_searchsorted(a: jax.Array, v: jax.Array) -> jax.Array:
 
     Batched binary search as a fixed log2(D) unrolled loop of
     ``take_along_axis`` gathers. (``jnp.searchsorted`` under ``vmap``
-    lowers to a sequential scan per query — catastrophically slow on TPU.)
+    lowers to a sequential scan per query.)
     """
     b, d = a.shape
     lo = jnp.zeros(v.shape, dtype=jnp.int32)
@@ -84,12 +84,13 @@ def _locate_in_prev(cur_nbr: jax.Array, prev_nbr: jax.Array,
         prev_wgt_of: [B, D] float32 — w(prev, x), 0 where not found —
             or None when ``prev_wgt`` is None (plain node2vec needs only
             membership; skipping the weight reduction avoids a second
-            [B, D, D] float pass, roughly half the kernel's VPU cost).
+            [B, D, D] float pass, roughly half the kernel's work).
 
-    TPU replacement for the sorted-merge ``isnotin`` / ``isnotin_extended``
-    scans (``sparse_rw.py:142-295``): an all-pairs equality mask — for the
-    padded widths in play (<= a few hundred) one [B, D, D] elementwise VPU
-    pass on register-resident rows beats any memory-indirect search.
+    Batched replacement for the sorted-merge ``isnotin`` /
+    ``isnotin_extended`` scans (``sparse_rw.py:142-295``): an all-pairs
+    equality mask — for the padded widths in play (<= a few hundred) one
+    [B, D, D] elementwise pass on already-gathered rows. The O(D log D)
+    ``row_searchsorted`` alternative is not yet compared on the GPU.
     """
     eq = cur_nbr[:, :, None] == prev_nbr[:, None, :]  # [B, D, D]
     found = jnp.any(eq, axis=-1)
@@ -111,7 +112,7 @@ def row_thresholds(
     """[B] noise threshold of each row's node, recomputed from its weights.
 
     Matches ``get_noise_thresholds`` (``sparse_rw.py:22-35``): population
-    mean + gamma * std over the node's edge weights, clipped at 0. Pure VPU
+    mean + gamma * std over the node's edge weights, clipped at 0. Pure
     math on the already-gathered wgt channel — no extra memory access.
     """
     w = graph.rows_wgt(rows)

@@ -2,7 +2,7 @@
 
 The reference is strictly single-host (SURVEY §5: its only parallelism is
 Numba threads). `parallel/train.py` scales *walkers* with a replicated
-graph — enough until the graph itself outgrows one chip's HBM. This
+graph — enough until the graph itself outgrows one device's memory. This
 module removes that ceiling: the fused row table row-shards over the
 ``data`` axis (shard s owns the contiguous node range
 [s * rows_per_shard, ...)), walkers stay sharded, and the per-step row
@@ -15,7 +15,7 @@ fetch becomes a collective:
 This "fetch by all-reduce" exchange is deliberately the simple, exactly
 load-balanced formulation: every shard does identical work regardless of
 which shard owns a walker's node, there are no capacity/overflow concerns,
-and XLA lays the psum onto ICI. The traffic-optimal variant (request/
+and XLA lays the psum onto the interconnect. The traffic-optimal variant (request/
 response all-to-all, O(B/S) per link instead of O(B)) is the documented
 follow-up; it changes only ``gather_rows`` here.
 
@@ -262,7 +262,8 @@ def exchange_cost_model(b_local: int, n_shards: int, width: int) -> dict:
     retry ``while_loop``, so ``auto`` requires a 2x modeled advantage
     (in practice: picks a2a from S >= 4). Virtual-mesh wall times:
     ``benchmarks/bench_exchange.py`` (CPU collectives are memcpys —
-    the model, not those times, is the ICI-relevant comparison).
+    the model, not those times, is the interconnect-relevant
+    comparison).
     """
     per_shard = max(b_local // n_shards, 1)
     cap = per_shard + 4 * int(np.sqrt(per_shard)) + 8

@@ -2,12 +2,12 @@
 
 The reference's only parallelism is Numba ``prange`` threads over walks and
 gensim's hogwild threads (SURVEY §2 "native components"); there is no
-distributed backend to port. This module is the new TPU-native capability:
+distributed backend to port. This module is new capability:
 
 * walkers are data-parallel over a ``data`` mesh axis — the walk batch is
   sharded; the graph is replicated (no collectives during walking) or
   row-sharded over the same axis (``parallel/distgraph.py`` — collective
-  row fetches, for graphs bigger than one chip's HBM);
+  row fetches, for graphs bigger than one device's memory);
 * SGNS embedding tables are tensor-parallel over a ``model`` mesh axis —
   ``W_in``/``W_out`` are sharded along the embedding dimension, so row
   gathers are local and the pair scores require one ``psum`` over the
@@ -17,7 +17,7 @@ distributed backend to port. This module is the new TPU-native capability:
   GSPMD.
 
 Everything goes through ``jax.jit`` + ``NamedSharding`` — no explicit
-collectives; XLA lays them onto ICI.
+collectives; XLA lays them onto the interconnect (NCCL on GPUs).
 """
 from typing import Optional, Sequence, Tuple
 
@@ -80,7 +80,7 @@ def shard_device_graph(graph, mesh: Mesh):
     """Replicate the padded graph across the mesh.
 
     (Stage-1 scaling strategy: graph replicated, walkers sharded. For
-    graphs that exceed one chip's HBM, use the edge-partitioned layout —
+    graphs that exceed one device's memory, use the edge-partitioned layout —
     ``parallel.distgraph.shard_graph`` / ``partition="edge"``.)
     """
     replicated = NamedSharding(mesh, P())

@@ -4,7 +4,7 @@ The reference is strictly single-host (SURVEY §5). This module layers
 ``jax.distributed`` multi-controller SPMD on top of the edge-partitioned
 walking of ``parallel/distgraph.py``: every process runs the identical
 program over the *global* device mesh, the shard_map collectives
-(all_gather / psum / all_to_all) ride ICI/DCN between hosts, and each
+(all_gather / psum / all_to_all) ride the interconnect between hosts, and each
 process feeds and reads only its addressable shards.
 
 Typical worker:
@@ -33,8 +33,8 @@ def initialize(
 ) -> None:
     """``jax.distributed.initialize`` with CPU-backend conveniences.
 
-    On TPU pods, call with no arguments (cluster auto-detection). For
-    CPU/multi-process testing, pass the coordinator host:port and the
+    Where the cluster is auto-detected, call with no arguments. Otherwise
+    (GPU hosts without a cluster manager, CPU multi-process testing) pass the coordinator host:port and the
     process grid explicitly; ``local_device_count`` forces that many
     virtual CPU devices per process (must be set before jax imports
     elsewhere in the process).

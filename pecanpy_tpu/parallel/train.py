@@ -2,9 +2,9 @@
 
 One ``shard_map`` program per step: a batch of walkers (sharded over the
 ``data`` mesh axis) advances ``walk_length`` steps over the graph —
-replicated per chip, or row-sharded over the same axis with collective
+replicated per device, or row-sharded over the same axis with collective
 row fetches (``partition="edge"``, ``parallel/distgraph.py``) once the
-graph outgrows one chip's HBM; hub graphs included, via the same
+graph outgrows one device's memory; hub graphs included, via the same
 rejection path as single-device walking — the walks expand into
 skip-gram pairs, and the tensor-parallel embedding tables (sharded along
 ``dim`` over ``model``) take one SGNS update. Collectives are explicit (``models/sgns.py`` ``make_step_body``):
@@ -13,13 +13,12 @@ skip-gram pairs, and the tensor-parallel embedding tables (sharded along
   dim-sharded rows);
 * ``all_gather`` over ``data`` for the update streams, so every data
   shard applies the identical full stream to its (data-replicated) table
-  slice — tables stay bitwise-identical across data shards, and the
-  Pallas applier (``ops/apply.py``) runs per shard on TPU. No XLA
-  scatter executes anywhere on the mesh path.
+  slice with the deterministic applier (``ops/apply.py``) — tables stay
+  bitwise-identical across data shards.
 
-``shard_map`` (not GSPMD sharding annotations) because the Pallas applier
-must run per-shard — under plain ``jit`` XLA cannot partition a custom
-kernel call.
+``shard_map`` (not GSPMD sharding annotations) keeps each collective
+where the step body places it, so the per-shard program is the
+single-device step plus those collectives.
 
 The reference has no distributed backend at all (SURVEY §5); this module
 is new capability, constrained only to reproduce the single-device
@@ -68,24 +67,21 @@ def resolve_partition(
     """Resolve ``partition="auto"`` to a concrete graph layout.
 
     Replicate while the graph's tables fit comfortably under the
-    per-chip budget (``PECANPY_TPU_REPLICATED_BUDGET_MB``, default 8192
-    — half a v5e's 16 GB HBM, leaving room for embedding tables, walk
-    buffers, and XLA scratch); row-shard ("edge") past it. Modes without
+    per-device budget (half the device's memory, leaving room for
+    embedding tables, walk buffers, and XLA scratch;
+    ``PECANPY_TPU_REPLICATED_BUDGET_MB`` overrides, see
+    ``utils/budget.py``); row-shard ("edge") past it. Modes without
     an edge-partitioned walker (the PreComp family — per-edge tables are
     single-device by design) always replicate, matching the trainer's
     own validation.
     """
-    import os
+    from pecanpy_tpu.utils.budget import REPLICATED, budget_bytes
 
     if partition != "auto":
         return partition
     if n_data_shards <= 1 or not mode_supported:
         return "replicated"
-    budget = (
-        int(os.environ.get("PECANPY_TPU_REPLICATED_BUDGET_MB", "8192"))
-        * (1 << 20)
-    )
-    return "edge" if graph_bytes > budget else "replicated"
+    return "edge" if graph_bytes > budget_bytes(REPLICATED) else "replicated"
 
 
 @dataclasses.dataclass
@@ -96,12 +92,12 @@ class MultichipTrainer:
 
     * ``"replicated"`` (default): every chip holds the full fused table;
       walking needs no collectives. Right while the graph fits one
-      chip's HBM.
+      device's memory.
     * ``"edge"``: the fused table (and hub tables) row-shard over the
       ``data`` axis (``parallel/distgraph.py``); per-step row fetches
       become the collective exchange (psum or request/response
       all-to-all, cost-model ``exchange="auto"``). Removes the
-      one-chip-HBM ceiling — per-chip graph memory is 1/S of the
+      one-device memory ceiling — per-device graph memory is 1/S of the
       table. The walks (and therefore the trained embeddings) are
       bit-identical to the replicated layout for the same seed: the
       partition changes where rows live, never which rows come back.
@@ -160,7 +156,6 @@ class MultichipTrainer:
                 f"unknown partition {self.partition!r}; "
                 "use 'replicated' or 'edge'"
             )
-        self._use_pallas = jax.default_backend() == "tpu"
         self._step = self._build_step()
         self._count = self._build_count_fn()
 
@@ -230,7 +225,6 @@ class MultichipTrainer:
         body = sgns.make_step_body(
             self.graph.num_nodes,
             self.config,
-            use_pallas=self._use_pallas,
             model_axis=MODEL_AXIS,
             data_axis=DATA_AXIS,
         )
@@ -302,19 +296,15 @@ class MultichipTrainer:
     # -- state ----------------------------------------------------------------
 
     def init_params(self, key: jax.Array):
-        """Sharded (w_in, w_out) tables (dims split over ``model``).
-
-        Rows are TILE-aligned (``sgns._alloc_tables``) so the per-shard
-        Pallas applier never pays its per-call pad/slice table copies;
-        the row axis is unsharded, so alignment is sharding-neutral.
-        """
+        """Sharded [N, dim] (w_in, w_out) tables (dims split over
+        ``model``), initialized exactly as the single-device trainer."""
         n, d = self.graph.num_nodes, self.config.dim
         from pecanpy_tpu.models.sgns import (
             _alloc_tables,
             resolve_table_dtype,
         )
 
-        dtype = resolve_table_dtype(self.config, n)
+        dtype = resolve_table_dtype(self.config)
         w_in, w_out = _alloc_tables(key, n, d, dtype)
         return (
             jax.device_put(w_in, self._table_sharding),
@@ -434,37 +424,13 @@ def train_streaming_multichip(
 
     w_in, w_out = trainer.init_params(k_init)
 
-    ckpt = None
-    resume_step = 0
-    if checkpoint_dir is not None:
-        from pecanpy_tpu.utils.checkpoint import (
-            SGNSCheckpointer,
-            checkpointing_available,
+    ckpt, resume_step, restored = sgns._open_checkpoint(
+        checkpoint_dir, RNG_SCHEME, w_in.dtype
+    )
+    if restored is not None:
+        w_in, w_out = (
+            jax.device_put(w, trainer._table_sharding) for w in restored
         )
-
-        if checkpointing_available():
-            ckpt = SGNSCheckpointer(checkpoint_dir)
-            if ckpt.latest_step() is not None:
-                w_in_np, w_out_np, meta = ckpt.restore()
-                from pecanpy_tpu.utils.checkpoint import (
-                    verify_rng_scheme,
-                )
-
-                verify_rng_scheme(meta, RNG_SCHEME)
-                from pecanpy_tpu.models.sgns import (
-                    resolve_table_dtype,
-                )
-
-                dtype = resolve_table_dtype(config, n)
-                w_in = jax.device_put(
-                    sgns._pad_restored(w_in_np, n, dtype),
-                    trainer._table_sharding,
-                )
-                w_out = jax.device_put(
-                    sgns._pad_restored(w_out_np, n, dtype),
-                    trainer._table_sharding,
-                )
-                resume_step = int(meta["next_step"])
 
     step_idx = 0
     done_tokens = 0.0
@@ -472,9 +438,7 @@ def train_streaming_multichip(
     for epoch in range(epochs):
         for i, part in enumerate(batches):
             if max_steps is not None and step_idx >= max_steps:
-                if ckpt is not None:
-                    ckpt.close()
-                return sgns._fetch_f32(w_in[:n])
+                return sgns._fetch_f32(w_in)
             if step_idx < resume_step:
                 done_tokens += batch_tokens[i]
                 step_idx += 1
@@ -495,9 +459,7 @@ def train_streaming_multichip(
             sgns._progress(verbose, t0, done_tokens, total_tokens)
             if ckpt is not None and step_idx % checkpoint_every == 0:
                 ckpt.save(
-                    step_idx, w_in[:n], w_out[:n],
+                    step_idx, w_in, w_out,
                     {"next_step": step_idx, "rng_scheme": RNG_SCHEME},
                 )
-    if ckpt is not None:
-        ckpt.close()
-    return sgns._fetch_f32(w_in[:n])
+    return sgns._fetch_f32(w_in)

@@ -1,27 +1,24 @@
-"""SGNS training checkpoint/resume (orbax-backed).
+"""SGNS training checkpoint/resume.
 
 The reference has no training checkpointing (SURVEY §5: its only
 persistence is graph-format conversion and the final embedding file). For
-pod-scale embedding runs, interruptible training matters, so the SGNS
-trainer can periodically snapshot its full state — both embedding tables
-plus the scalar training cursor — and resume mid-epoch.
-"""
-import os
-from typing import Any, Dict, Optional, Tuple
+large embedding runs, interruptible training matters, so the SGNS trainer
+can periodically snapshot its full state — both [N, dim] embedding
+tables plus the scalar training cursor — and resume mid-epoch.
 
-import jax
+Format: one ``step_<n>.npz`` per snapshot holding ``w_in``, ``w_out``
+and ``meta`` (a JSON document as UTF-8 bytes). Each file is written to
+a temporary name, flushed to disk, then renamed into place, so a crash
+mid-save never leaves a partial snapshot under a step name.
+"""
+import json
+import os
+import re
+from typing import Any, Dict, List, Optional, Tuple
+
 import numpy as np
 
-try:
-    import orbax.checkpoint as ocp
-
-    _HAVE_ORBAX = True
-except ImportError:  # pragma: no cover - orbax is in the standard image
-    _HAVE_ORBAX = False
-
-
-def checkpointing_available() -> bool:
-    return _HAVE_ORBAX
+_NAME = re.compile(r"^step_(\d+)\.npz$")
 
 
 def verify_rng_scheme(meta: Dict[str, Any], expected: str) -> None:
@@ -51,62 +48,49 @@ class SGNSCheckpointer:
     """Manages a directory of numbered SGNS training snapshots."""
 
     def __init__(self, directory: str, max_to_keep: int = 3):
-        if not _HAVE_ORBAX:
-            raise RuntimeError("orbax-checkpoint not available")
-        self._mgr = ocp.CheckpointManager(
-            os.path.abspath(directory),
-            options=ocp.CheckpointManagerOptions(max_to_keep=max_to_keep),
-        )
+        self._dir = os.path.abspath(directory)
+        self._keep = max_to_keep
+        os.makedirs(self._dir, exist_ok=True)
 
-    def save(
-        self,
-        step: int,
-        w_in: jax.Array,
-        w_out: jax.Array,
-        meta: Dict[str, Any],
-    ):
-        """Snapshot tables + training cursor at ``step`` (a chunk index).
+    def _path(self, step: int) -> str:
+        return os.path.join(self._dir, f"step_{step}.npz")
 
-        String meta values (e.g. the ``rng_scheme`` version tag) encode
-        as uint8 arrays — orbax's standard handler stores arrays only —
-        and decode back transparently in ``restore``.
-        """
-        state = {
-            "w_in": np.asarray(w_in),
-            "w_out": np.asarray(w_out),
-            "meta": {
-                k: (
-                    np.frombuffer(v.encode("utf-8"), dtype=np.uint8).copy()
-                    if isinstance(v, str)
-                    else v
-                )
-                for k, v in meta.items()
-            },
-        }
-        self._mgr.save(step, args=ocp.args.StandardSave(state))
-        self._mgr.wait_until_finished()
+    def steps(self) -> List[int]:
+        """Snapshot steps present, ascending."""
+        found = (_NAME.match(f) for f in os.listdir(self._dir))
+        return sorted(int(m.group(1)) for m in found if m)
+
+    def save(self, step: int, w_in, w_out, meta: Dict[str, Any]):
+        """Snapshot tables + training cursor at ``step`` (a chunk index)."""
+        final = self._path(step)
+        tmp = f"{final}.tmp{os.getpid()}"
+        with open(tmp, "wb") as f:
+            np.savez(
+                f,
+                w_in=np.asarray(w_in),
+                w_out=np.asarray(w_out),
+                meta=np.frombuffer(
+                    json.dumps(meta).encode("utf-8"), dtype=np.uint8
+                ),
+            )
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, final)
+        for old in self.steps()[: -self._keep]:
+            os.remove(self._path(old))
 
     def latest_step(self) -> Optional[int]:
-        return self._mgr.latest_step()
+        steps = self.steps()
+        return steps[-1] if steps else None
 
     def restore(
         self, step: Optional[int] = None
     ) -> Tuple[np.ndarray, np.ndarray, Dict[str, Any]]:
         """Load (w_in, w_out, meta) from ``step`` (default: latest)."""
         if step is None:
-            step = self._mgr.latest_step()
+            step = self.latest_step()
         if step is None:
-            raise FileNotFoundError("no checkpoint found")
-        state = self._mgr.restore(step)
-        meta = {
-            k: (
-                np.asarray(v).tobytes().decode("utf-8")
-                if isinstance(v, np.ndarray) and v.dtype == np.uint8
-                else v
-            )
-            for k, v in dict(state["meta"]).items()
-        }
-        return state["w_in"], state["w_out"], meta
-
-    def close(self):
-        self._mgr.close()
+            raise FileNotFoundError(f"no checkpoint in {self._dir}")
+        with np.load(self._path(step)) as z:
+            meta = json.loads(z["meta"].tobytes().decode("utf-8"))
+            return z["w_in"], z["w_out"], meta

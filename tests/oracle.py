@@ -3,7 +3,7 @@
 Implements the exact per-node transition-probability definitions from the
 reference (``src/pecanpy/rw/sparse_rw.py``, ``rw/dense_rw.py``,
 ``experimental.py``) as straightforward dense numpy code. Used as ground
-truth for the batched TPU kernels: the kernels must reproduce these
+truth for the batched device kernels: the kernels must reproduce these
 distributions to float tolerance on every (cur, prev) pair.
 """
 import numpy as np
@@ -38,6 +38,22 @@ def node2vec_probs(
     w[prev] /= p
     w = w[nbr_mask]
     return w / w.sum()
+
+
+def node2vec_probs_csr(indptr, indices, data, cur: int, prev: int,
+                       p: float, q: float):
+    """``node2vec_probs`` on a CSR graph (rows sorted ascending).
+
+    Returns (membership, probs) over cur's neighbors: ``membership[i]``
+    says whether cur's i-th neighbor is also a neighbor of prev.
+    """
+    nbr = indices[indptr[cur]:indptr[cur + 1]]
+    w = data[indptr[cur]:indptr[cur + 1]].astype(np.float64)
+    found = np.isin(nbr, indices[indptr[prev]:indptr[prev + 1]])
+    is_prev = nbr == prev
+    w = np.where(~found & ~is_prev, w / q, w)
+    w = np.where(is_prev, w / p, w)
+    return found, w / w.sum()
 
 
 def node2vec_plus_probs(

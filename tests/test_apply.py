@@ -1,8 +1,6 @@
-"""The sparse-row update applier (``ops/apply.py``).
-
-The scatter reference path runs everywhere (CPU in this suite); the
-Pallas tile-streaming path only compiles on TPU and is exercised by the
-benchmark drivers — here we pin the *semantics* both paths share.
+"""The sparse-row update applier (``ops/apply.py``) against a numpy
+oracle: per-row capped gradient sums, two-stream merging, padding,
+edge ids, and bit-for-bit repeatability.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -97,76 +95,82 @@ def test_zero_count_padding_is_noop(rng):
     np.testing.assert_array_equal(got, table)
 
 
-def _force_v2(monkeypatch):
-    from pecanpy_tpu.ops import apply as apply_lib
+def _stream(rng, n, r, d, ids=None):
+    if ids is None:
+        ids = rng.integers(0, n, r)
+    return (
+        np.asarray(ids, dtype=np.int32),
+        rng.normal(size=(r, d)).astype(np.float32),
+        rng.integers(0, 4, r).astype(np.float32),
+    )
 
-    monkeypatch.setattr(apply_lib, "APPLY_V2", True)
-    monkeypatch.setattr(apply_lib, "DOT_BF16", False)  # f32-exact compare
-    return apply_lib
 
-
-def test_v2_kernel_matches_scatter_interpret(rng, monkeypatch):
-    """The windowed per-tile (v2) applier equals the scatter reference,
-    run through the Pallas interpreter on CPU (TILE-spanning stream,
-    empty tiles, repeated hot ids, window-boundary sharing)."""
-    apply_lib = _force_v2(monkeypatch)
-    n = apply_lib.TILE * 3  # 3 tiles; leave tile 1 untouched
-    d = apply_lib._LANE
-    r = 4 * apply_lib.K_WINDOW + 37  # non-multiple: exercises padding
+def _case(name, rng):
+    """(table, stream a, stream b or None, cap_a, cap_b) for one case."""
+    n, d = 64, 16
     table = rng.normal(size=(n, d)).astype(np.float32)
-    ids = np.concatenate([
-        rng.integers(0, apply_lib.TILE, r - 40),           # tile 0
-        np.full(20, 2 * apply_lib.TILE + 5),               # hot row, tile 2
-        rng.integers(2 * apply_lib.TILE, n, 20),           # tile 2
-    ]).astype(np.int32)
-    upd = rng.normal(size=(r, d)).astype(np.float32)
-    cnt = rng.integers(0, 3, r).astype(np.float32)
-    got = np.asarray(
-        apply_lib._pallas_apply_one(
-            jnp.asarray(table), jnp.asarray(ids), jnp.asarray(upd),
-            jnp.asarray(cnt), jnp.float32(0.05), 4.0, jnp.int32(3),
-            interpret=True,
-        )
-    )
-    expected = np.asarray(
-        apply_lib._apply_scatter(
-            jnp.asarray(table), jnp.asarray(ids), jnp.asarray(upd),
-            jnp.asarray(cnt), jnp.float32(0.05), 4.0,
-        )
-    )
-    # untouched tile copies through bit-exactly
-    t1 = slice(apply_lib.TILE, 2 * apply_lib.TILE)
-    np.testing.assert_array_equal(got[t1], table[t1])
-    np.testing.assert_allclose(got, expected, rtol=2e-5, atol=1e-6)
+    if name == "one_cap1":
+        return table, _stream(rng, n, 300, d), None, 1.0, 1.0
+    if name == "one_cap20":
+        return table, _stream(rng, n, 300, d), None, 20.0, 20.0
+    if name == "two_caps_4_1":
+        return table, _stream(rng, n, 200, d), _stream(rng, n, 90, d), 4.0, 1.0
+    if name == "two_cap20":
+        return (table, _stream(rng, n, 200, d), _stream(rng, n, 90, d),
+                20.0, 20.0)
+    if name == "empty_one":
+        return table, _stream(rng, n, 0, d), None, 4.0, 4.0
+    if name == "empty_two":
+        return table, _stream(rng, n, 0, d), _stream(rng, n, 0, d), 4.0, 4.0
+    if name == "hot_row_one":
+        return table, _stream(rng, n, 500, d, ids=np.full(500, 9)), None, 4.0, 4.0
+    if name == "hot_row_two":
+        return (table, _stream(rng, n, 300, d, ids=np.full(300, 9)),
+                _stream(rng, n, 200, d, ids=np.full(200, 9)), 4.0, 2.0)
+    if name == "first_last_ids":
+        ids = np.tile([0, n - 1], 40)
+        return (table, _stream(rng, n, 80, d, ids=ids),
+                _stream(rng, n, 80, d, ids=ids[::-1]), 4.0, 4.0)
+    raise ValueError(name)
 
 
-def test_v2_two_streams_matches_scatter_interpret(rng, monkeypatch):
-    apply_lib = _force_v2(monkeypatch)
-    n = apply_lib.TILE * 2
-    d = apply_lib._LANE
-    r_a, r_b = apply_lib.K_WINDOW + 11, 301
-    table = rng.normal(size=(n, d)).astype(np.float32)
-    ids_a = rng.integers(0, n, r_a).astype(np.int32)
-    upd_a = rng.normal(size=(r_a, d)).astype(np.float32)
-    cnt_a = rng.integers(1, 3, r_a).astype(np.float32)
-    ids_b = rng.integers(0, n, r_b).astype(np.int32)
-    upd_b = rng.normal(size=(r_b, d)).astype(np.float32)
-    cnt_b = rng.integers(1, 3, r_b).astype(np.float32)
-    lr = jnp.float32(0.05)
-    got = np.asarray(
-        apply_lib._pallas_apply_two(
-            jnp.asarray(table), jnp.asarray(ids_a), jnp.asarray(upd_a),
-            jnp.asarray(cnt_a), jnp.asarray(ids_b), jnp.asarray(upd_b),
-            jnp.asarray(cnt_b), lr, 4.0, 1.0, jnp.int32(0),
-            interpret=True,
-        )
-    )
-    step1 = apply_lib._apply_scatter(
-        jnp.asarray(table), jnp.asarray(ids_a), jnp.asarray(upd_a),
-        jnp.asarray(cnt_a), lr, 4.0,
-    )
-    expected = np.asarray(apply_lib._apply_scatter(
-        step1, jnp.asarray(ids_b), jnp.asarray(upd_b),
-        jnp.asarray(cnt_b), lr, 1.0,
+def _run(table, a, b, lr, cap_a, cap_b):
+    j = [jnp.asarray(x) for x in a]
+    if b is None:
+        return np.asarray(apply_mean_updates(
+            jnp.asarray(table), *j, jnp.float32(lr), cap=cap_a
+        ))
+    k = [jnp.asarray(x) for x in b]
+    return np.asarray(apply_mean_updates_two(
+        jnp.asarray(table), *j, *k, jnp.float32(lr), cap_a=cap_a, cap_b=cap_b
     ))
+
+
+CASES = ["one_cap1", "one_cap20", "two_caps_4_1", "two_cap20", "empty_one",
+         "empty_two", "hot_row_one", "hot_row_two", "first_last_ids"]
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_applier_matches_numpy_oracle(rng, name):
+    """Each stream keeps its own normalization group: the merged
+    application equals the oracle applied stream by stream."""
+    table, a, b, cap_a, cap_b = _case(name, rng)
+    expected = reference(table, *a, 0.05, cap_a)
+    if b is not None:
+        expected = reference(expected, *b, 0.05, cap_b)
+    got = _run(table, a, b, 0.05, cap_a, cap_b)
     np.testing.assert_allclose(got, expected, rtol=2e-5, atol=1e-6)
+    if a[0].size == 0 and (b is None or b[0].size == 0):
+        np.testing.assert_array_equal(got, table)
+
+
+@pytest.mark.parametrize("name", ["two_cap20", "hot_row_two"])
+def test_applier_repeat_calls_bit_identical(rng, name):
+    """The segmented-scan reduction has a fixed order: repeated calls on
+    the same inputs give the same bits."""
+    table, a, b, cap_a, cap_b = _case(name, rng)
+    first = _run(table, a, b, 0.05, cap_a, cap_b)
+    for _ in range(3):
+        np.testing.assert_array_equal(
+            _run(table, a, b, 0.05, cap_a, cap_b), first
+        )

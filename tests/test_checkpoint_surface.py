@@ -10,8 +10,6 @@ import pytest
 
 from pecanpy_tpu import cli, pecanpy
 
-pytest.importorskip("orbax.checkpoint")
-
 
 def _toy_adj(n=24, seed=3):
     rng = np.random.default_rng(seed)
@@ -111,10 +109,36 @@ def test_rng_scheme_mismatch_refuses_resume(tmp_path):
         np.zeros((n, dim), np.float32),
         {"next_step": 1, "rng_scheme": "some-older-scheme"},
     )
-    ck.close()
 
     walks = np.tile(np.arange(6, dtype=np.int32), (8, 1)) % n
     eff = np.full(8, 6, dtype=np.int32)
     config = sgns.SGNSConfig(dim=dim, window=2, seed=0, table_dtype="float32")
     with pytest.raises(ValueError, match="RNG scheme"):
         sgns.train(walks, eff, n, config, checkpoint_dir=ckdir)
+
+
+def test_checkpoint_files_roundtrip_and_prune(tmp_path):
+    """npz snapshots: tables and JSON meta round-trip exactly, only the
+    newest ``max_to_keep`` survive, and no temporary file is left."""
+    import os
+
+    from pecanpy_tpu.utils.checkpoint import SGNSCheckpointer
+
+    ck = SGNSCheckpointer(str(tmp_path / "ck"), max_to_keep=2)
+    assert ck.latest_step() is None
+    rng = np.random.default_rng(0)
+    tables = {}
+    for step in (1, 2, 3):
+        w_in = rng.normal(size=(5, 4)).astype(np.float32)
+        w_out = rng.normal(size=(5, 4)).astype(np.float32)
+        tables[step] = (w_in, w_out)
+        ck.save(step, w_in, w_out, {"next_step": step, "rng_scheme": "s-v1"})
+    assert ck.steps() == [2, 3]
+    assert sorted(os.listdir(tmp_path / "ck")) == ["step_2.npz", "step_3.npz"]
+    w_in, w_out, meta = ck.restore()
+    np.testing.assert_array_equal(w_in, tables[3][0])
+    np.testing.assert_array_equal(w_out, tables[3][1])
+    assert meta == {"next_step": 3, "rng_scheme": "s-v1"}
+    assert ck.restore(2)[2]["next_step"] == 2
+    with pytest.raises(FileNotFoundError):
+        SGNSCheckpointer(str(tmp_path / "empty")).restore()

@@ -73,7 +73,7 @@ def test_single_step_matches_gensim_formula():
         dim=dim, window=1, negative=1, sample=0.0,
         update_cap=float("inf"), seed=0,
     )
-    step = sgns.make_step_body(n, config, use_pallas=False)
+    step = sgns.make_step_body(n, config)
     walks = jnp.asarray([walk], dtype=jnp.int32)
     eff = jnp.asarray([len(walk)], dtype=jnp.int32)
     keep = jnp.ones(n, dtype=jnp.float32)
@@ -105,7 +105,7 @@ def test_negative_collision_skipped():
         dim=dim, window=1, negative=1, sample=0.0,
         update_cap=float("inf"), seed=0,
     )
-    step = sgns.make_step_body(n, config, use_pallas=False)
+    step = sgns.make_step_body(n, config)
     # every negative draw == node 0 == the center of pair (0 -> ctx 1):
     # that pair's negative must be skipped; pair (1 -> ctx 0) keeps it
     neg_table = jnp.zeros((64,), dtype=jnp.int32)

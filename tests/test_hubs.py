@@ -579,7 +579,7 @@ def _second_order_check(adj, walks, eff, p, q, min_checked=3):
 def test_tiered_trials_distribution(rng, monkeypatch):
     """Moderate hub fraction -> the tiered block engages (tier_lanes > 0)
     and the sampled law stays exact through both engines. (The tier is
-    an OPT-IN negative result on v5e -- see engine._tier_lanes -- but
+    an OPT-IN negative result -- see engine._tier_lanes -- but
     its law must stay exact for anyone who enables it.)"""
     from pecanpy_tpu.models import engine as eng
 

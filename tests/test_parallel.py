@@ -46,11 +46,8 @@ def test_multichip_fused_step(eight_devices, rng):
     w_in2, w_out2 = trainer.step(
         w_in, w_out, starts, keep_prob, neg_table, 0.025, key
     )
-    # tables allocate TILE-aligned rows (sgns._aligned_rows); logical
-    # rows are the first 32
-    from pecanpy_tpu.models.sgns import _aligned_rows
-
-    assert w_in2.shape == (_aligned_rows(32), 16)
+    # tables are exactly [N, dim]
+    assert w_in2.shape == (32, 16)
     assert np.isfinite(np.asarray(w_in2)).all()
     # training moved the parameters
     assert float(jnp.abs(w_out2).sum()) > 0.0
@@ -164,7 +161,6 @@ def test_multichip_streaming_checkpoint_resume(eight_devices, rng, tmp_path):
     an interrupted+resumed run produce identical embeddings."""
     from pecanpy_tpu.parallel.train import train_streaming_multichip
 
-    pytest.importorskip("orbax.checkpoint")
     adj = oracle.random_graph(rng, 20, mean_degree=5.0, weighted=True)
     graph = device_csr_from_dense(adj)
     m = mesh_lib.make_mesh(8, model_parallel=2)

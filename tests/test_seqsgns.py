@@ -118,7 +118,7 @@ def test_sequential_matches_python_oracle(rng):
 
 @pytest.mark.skipif(not native_available(), reason="no native toolchain")
 def test_sequential_trains_communities(rng):
-    """Sequential reference learns the same SBM the TPU trainer is gated
+    """Sequential reference learns the same SBM the device trainer is gated
     on (sanity that it is a usable quality baseline)."""
     import test_downstream as td
 

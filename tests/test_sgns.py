@@ -83,11 +83,6 @@ def test_train_handles_multiple_chunks():
 
 def test_checkpoint_resume(tmp_path):
     """Interrupted training resumes to the identical final state."""
-    from pecanpy_tpu.utils.checkpoint import checkpointing_available
-
-    if not checkpointing_available():
-        pytest.skip("orbax unavailable")
-
     adj = two_clique_graph(k=4)
     ids = [str(i) for i in range(adj.shape[0])]
     g = pecanpy.SparseOTF.from_mat(adj, ids, random_state=0)
@@ -121,8 +116,8 @@ def test_streaming_embed_matches_materialized():
 
 
 def test_bfloat16_tables_train():
-    """bf16 tables train and separate communities (scatter path rounds to
-    nearest on CPU; the TPU Pallas path applies stochastic rounding)."""
+    """bf16 tables train (the applier rounds each update to nearest) and
+    the explicit choice warns about it."""
     adj = two_clique_graph(k=8)
     ids = [str(i) for i in range(adj.shape[0])]
     g = pecanpy.SparseOTF.from_mat(adj, ids, random_state=0)
@@ -131,18 +126,14 @@ def test_bfloat16_tables_train():
         dim=16, window=3, epochs=2, sample=0.0, seed=0,
         table_dtype="bfloat16",
     )
-    emb = np.asarray(sgns.train(walks, eff, g.num_nodes, config))
+    with pytest.warns(UserWarning, match="round every update to nearest"):
+        emb = np.asarray(sgns.train(walks, eff, g.num_nodes, config))
     assert emb.dtype == np.float32  # upcast on return
     assert np.isfinite(emb).all()
 
 
 def test_streaming_checkpoint_resume(tmp_path):
     """Interrupted streaming training resumes to the identical state."""
-    from pecanpy_tpu.utils.checkpoint import checkpointing_available
-
-    if not checkpointing_available():
-        pytest.skip("orbax unavailable")
-
     adj = two_clique_graph(k=4)
     ids = [str(i) for i in range(adj.shape[0])]
     g = pecanpy.SparseOTF.from_mat(adj, ids, random_state=0)
@@ -335,27 +326,29 @@ def test_streaming_walk_cache_equivalence():
 
 
 def test_auto_table_dtype_size_aware(monkeypatch):
-    """table_dtype='auto' resolves to f32 for small tables even on TPU
-    (bf16's memory/bandwidth wins are immaterial there; its measured
-    quality cost is not) and bf16 past the threshold."""
+    """table_dtype='auto' resolves to f32 on a GPU backend, for any
+    table size (the applier has no stochastic rounding, so bf16 would
+    drop sub-ulp SGD updates)."""
     import jax.numpy as jnp
 
     from pecanpy_tpu.models import sgns as sgns_mod
 
-    monkeypatch.setattr(sgns_mod.jax, "default_backend", lambda: "tpu")
-    cfg = sgns_mod.SGNSConfig(dim=128, table_dtype="auto")
-    small_n = sgns_mod.AUTO_F32_TABLE_ELEMS // 128
-    assert sgns_mod.resolve_table_dtype(cfg, small_n) == jnp.float32
-    assert sgns_mod.resolve_table_dtype(cfg, small_n + 1) == jnp.bfloat16
-    # unknown table size keeps the backend default
-    assert sgns_mod.resolve_table_dtype(cfg) == jnp.bfloat16
-    # explicit choices pass through regardless of size
+    monkeypatch.setattr(sgns_mod.jax, "default_backend", lambda: "gpu")
+    for dim in (16, 128, 1024):
+        cfg = sgns_mod.SGNSConfig(dim=dim, table_dtype="auto")
+        assert sgns_mod.resolve_table_dtype(cfg) == jnp.float32
+    # explicit choices pass through
     assert (
-        sgns_mod.resolve_table_dtype(
-            sgns_mod.SGNSConfig(table_dtype="float32"), 10**9
-        )
+        sgns_mod.resolve_table_dtype(sgns_mod.SGNSConfig(table_dtype="float32"))
         == jnp.float32
     )
+    with pytest.warns(UserWarning, match="round every update to nearest"):
+        assert (
+            sgns_mod.resolve_table_dtype(
+                sgns_mod.SGNSConfig(table_dtype="bfloat16")
+            )
+            == jnp.bfloat16
+        )
 
 
 def test_embed_small_corpus_epochs_advisory(rng):
@@ -396,23 +389,19 @@ def test_gather_1d_exact(rng):
 
 
 def test_alloc_tables_aligned_and_logical_init():
-    """Tables allocate TILE-aligned; the logical rows' init values equal
-    a direct [N, dim] draw (alignment must not change seeded values),
-    and padding rows are exactly zero."""
+    """Tables allocate exactly [N, dim]; the init values equal a direct
+    [N, dim] uniform draw (the seeded values of earlier releases), and
+    w_out starts at zero."""
     import jax
     import jax.numpy as jnp
-
-    from pecanpy_tpu.ops.apply import TILE
 
     n, dim = 100, 16
     key = jax.random.PRNGKey(7)
     w_in, w_out = sgns._alloc_tables(key, n, dim, jnp.float32)
-    assert w_in.shape[0] == sgns._aligned_rows(n)
-    assert w_in.shape[0] % TILE == 0
+    assert w_in.shape == w_out.shape == (n, dim)
     bound = 0.5 / dim
     direct = jax.random.uniform(
         key, (n, dim), minval=-bound, maxval=bound
     )
-    np.testing.assert_array_equal(np.asarray(w_in[:n]), np.asarray(direct))
-    assert not np.asarray(w_in[n:]).any()
+    np.testing.assert_array_equal(np.asarray(w_in), np.asarray(direct))
     assert not np.asarray(w_out).any()
